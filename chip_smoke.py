@@ -12,16 +12,32 @@ its last line:
    against their plain PyTorch versions, on the plan tables of the five
    paper generators at ``scale="bench"`` (f64, one also f32) and of the
    1M-unknown thermal2 plan.  Max relative error <= 1e-12 (f64), 1e-5 (f32).
+   The batched kernels likewise at B in {1, 3, 8} on the bench tables and
+   at B = 8 on the 1M tables, and each batched column bitwise equal to the
+   single-RHS kernel on that column.
 3. Main path: ``build_plan`` + ``plan.solve`` on thermal2 at n = 1,048,576
    (laplace_2d(1024, 1024) with a log-normal coefficient), HBMC, block 16,
    w 8.  CONVERGED in 48 +- 2 iterations, true relres < 1e-6 on the host,
    one trisolve kernel launch per apply (iterations + 1) and one SpMV kernel
    launch per iteration.  A small solve on the card is held against the same
    solve on the CPU (plain path).
+3b. Batched path: ``plan.solve_batched`` on the same plan with B = 8
+   columns from ``default_rng(11)``: every column CONVERGED with true relres
+   < 1e-6 and the iteration count of ``plan.solve`` on that column; launches
+   B3 = n_steps + 1, B4 = n_steps, none of the single-RHS kernels.
+3c. Serving: a ``SolverService(slab_width=8, quantum=16)`` on a wall clock
+   over the same matrix, 24 seeded requests, one with a NaN RHS and one
+   with a zero RHS: NaN -> BREAKDOWN, zero -> CONVERGED at 0 iterations,
+   the rest CONVERGED at their single-RHS counts; the NaN request's slab
+   neighbours and others bitwise equal to ``plan.solve_slab`` on the
+   service's cached plan.
 4. Times with CUDA events after a warm-up, each beside its bound from the
    bytes it must move: per trisolve apply, per SpMV, per PCG iteration, the
    plain versions, and the cuSPARSE CSR SpMV (``torch.mv`` on a CSR tensor,
-   timed as a yardstick only; the port never calls it).
+   timed as a yardstick only; the port never calls it); the same at B = 8
+   for the batched kernels (cuSPARSE SpMM, ``torch.sparse.mm``, as B4's
+   yardstick), ms per batched iteration, and the service's solves per
+   second.
 
 Its last lines: one JSON object with a row per kernel, the card's name and
 power limit from ``nvidia-smi``, then ``{"ok": true, "device": {...}}``.
@@ -47,6 +63,10 @@ MAIN_GRID = 1024            # laplace_2d(1024, 1024): n = 1,048,576
 MAIN_ITERATIONS, ITER_BAND = 48, 2
 TOL = {"torch.float64": 1e-12, "torch.float32": 1e-5}
 
+BATCH = 8                   # columns of the batched path and slab width
+BATCH_SIZES = (1, 3, 8)     # widths of the batched kernel checks
+SERVE_REQUESTS, SERVE_QUANTUM = 24, 16
+
 KERNELS = {
     "hbmc_trisolve_fused": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/hbmc_trisolve.cu",
@@ -54,7 +74,14 @@ KERNELS = {
     "sell_spmv": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/sell_spmv.cu",
         replaces="src/repro/kernels/sell_spmv.py:70"),
+    "hbmc_trisolve_fused_batched": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/hbmc_trisolve.cu",
+        replaces="src/repro/kernels/hbmc_trisolve.py:239"),
+    "sell_spmv_batched": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/sell_spmv.cu",
+        replaces="src/repro/kernels/sell_spmv.py:105"),
 }
+NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
 def log(*args) -> None:
@@ -104,8 +131,25 @@ def time_ms(fn, reps: int, device) -> float:
     return start.elapsed_time(end) / reps
 
 
+def loop_ms(solve, rhs, reps: int) -> list[float]:
+    """Wall ms per PCG loop trip (the solve's own device-synchronised host
+    clock around its loop) over ``reps`` solves, sorted.  The loop is
+    host-bound, so its time varies between runs more than a kernel's."""
+    out = []
+    for _ in range(reps):
+        rep = solve(rhs)
+        trips = getattr(rep.result, "n_steps", rep.result.iterations)
+        out.append(rep.solve_seconds * 1e3 / max(trips, 1))
+    return sorted(out)
+
+
+def spread(ms: list[float]) -> str:
+    return (f"median {ms[len(ms) // 2]:.4f} (min {ms[0]:.4f}, max "
+            f"{ms[-1]:.4f}, {len(ms)} solves)")
+
+
 def trisolve_bytes(tables, q) -> int:
-    """Each input read once, the (S*R,) output written once."""
+    """Each input read once, the (S*R[, B]) output written once."""
     return (tables.cols.numel() * tables.cols.element_size()
             + tables.vals.numel() * tables.vals.element_size()
             + tables.dinv.numel() * tables.dinv.element_size()
@@ -113,10 +157,13 @@ def trisolve_bytes(tables, q) -> int:
 
 
 def spmv_bytes(vals, cols, x) -> int:
+    """vals, cols and x (n[, B]) read once, y (n_rows[, B]) written once."""
     n_rows = vals.shape[0] * vals.shape[2]
+    n_cols = x.numel() // x.shape[0]
     return (vals.numel() * vals.element_size()
             + cols.numel() * cols.element_size()
-            + x.numel() * x.element_size() + n_rows * x.element_size())
+            + x.numel() * x.element_size()
+            + n_rows * n_cols * x.element_size())
 
 
 def bound(n_bytes: int, n_ops: int, dtype) -> tuple[float, str]:
@@ -160,36 +207,212 @@ def check_kernels(plan, label: str, seed: int) -> dict:
     return errs
 
 
-def profile_solve(plan, b) -> None:
-    """Device time by kernel over one warm ``plan.solve`` (torch.profiler),
-    and the device's busy share of the PCG loop's wall time.  The profiler
-    adds host cost per op, so the busy share it shows is a lower bound."""
+def check_batched_kernels(plan, label: str, seed: int,
+                          sizes=BATCH_SIZES) -> dict:
+    """Batched kernels vs their plain versions at each B in ``sizes``, and
+    each batched column bitwise equal to the single-RHS kernel on it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import (hbmc_trisolve_fused,
+                                     hbmc_trisolve_fused_batched,
+                                     hbmc_trisolve_fused_batched_ref,
+                                     sell_spmv, sell_spmv_batched,
+                                     sell_spmv_batched_ref)
+    t = plan._precond.tables
+    sv, sc = plan._spmv_vals, plan._spmv_cols
+    dev, dt = plan.device, plan.dtype
+    tol = TOL[str(dt)]
+    rng = np.random.default_rng(seed)
+    worst = {"hbmc_trisolve_fused_batched": 0.0, "sell_spmv_batched": 0.0}
+    for nb in sizes:
+        q = torch.tensor(rng.normal(size=(t.n_steps, t.lanes, nb)),
+                         device=dev).to(dt)
+        x = torch.tensor(rng.normal(size=(plan._spmv_n, nb)),
+                         device=dev).to(dt)
+        z = hbmc_trisolve_fused_batched(t.cols, t.vals, t.dinv, q)
+        y = sell_spmv_batched(sv, sc, x)
+        errs = {"hbmc_trisolve_fused_batched": rel_err(
+                    z, hbmc_trisolve_fused_batched_ref(t.cols, t.vals,
+                                                       t.dinv, q)),
+                "sell_spmv_batched": rel_err(
+                    y, sell_spmv_batched_ref(sv, sc, x))}
+        for name, err in errs.items():
+            if not err <= tol:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version on {label}, B={nb}: "
+                                     f"{err:.3e} > {tol:g}")
+            worst[name] = max(worst[name], err)
+        if not (torch.isfinite(z).all() and torch.isfinite(y).all()):
+            raise AssertionError(f"non-finite batched output on {label}")
+        for j in range(nb):
+            if not (torch.equal(z[:, j], hbmc_trisolve_fused(
+                        t.cols, t.vals, t.dinv, q[..., j].contiguous()))
+                    and torch.equal(y[:, j], sell_spmv(
+                        sv, sc, x[:, j].contiguous()))):
+                raise AssertionError(f"batched column {j} of B={nb} is not "
+                                     f"bitwise the single-RHS kernel's on "
+                                     f"{label}")
+    log(f"  {label:<28} batched B={list(sizes)}: trisolve rel err "
+        f"{worst['hbmc_trisolve_fused_batched']:.3e}  spmv rel err "
+        f"{worst['sell_spmv_batched']:.3e}; every column bitwise equal to "
+        f"the single-RHS kernels")
+    return worst
+
+
+def profile_solve(plan, b, b_batched) -> None:
+    """Device time by kernel over one warm ``plan.solve`` and one warm
+    ``plan.solve_batched`` (torch.profiler), and the device's busy share of
+    each PCG loop: kernel time over the loop's wall time.  Memory copies
+    are counted apart: the RHS upload and the solution download happen
+    outside the loop (pageable host memory), the per-iteration flag reads
+    inside it.  The profiler adds host cost per op, so the busy share it
+    shows is a lower bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
-        rep = plan.solve(b)
-    by_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us() / 1e3
-    loop_ms = rep.solve_seconds * 1e3
-    if not by_name:
-        log(f"profile: no device activity recorded (device busy share: not "
-            f"measured); PCG loop {loop_ms:.2f} ms under the profiler")
-        return
-    busy = sum(by_name.values())
-    log(f"profile of one solve: device busy {busy:.2f} ms of the PCG loop's "
-        f"{loop_ms:.2f} ms under the profiler ({100 * busy / loop_ms:.1f}%)"
-        f"; device ms by kernel:")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"  {ms:9.3f}  {name[:90]}")
+    for label, solve, rhs in (("solve", plan.solve, b),
+                              (f"solve_batched (B={b_batched.shape[1]})",
+                               plan.solve_batched, b_batched)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            rep = solve(rhs)
+        by_name: dict[str, float] = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + \
+                    e.time_range.elapsed_us() / 1e3
+        loop_ms = rep.solve_seconds * 1e3
+        if not by_name:
+            log(f"profile of one {label}: no device activity recorded "
+                f"(device busy share: not measured); PCG loop "
+                f"{loop_ms:.2f} ms under the profiler")
+            continue
+        copy_ms = sum(ms for name, ms in by_name.items()
+                      if name.startswith("Memcpy"))
+        kernel_ms = sum(by_name.values()) - copy_ms
+        log(f"profile of one {label}: device kernels {kernel_ms:.2f} ms of "
+            f"the PCG loop's {loop_ms:.2f} ms under the profiler "
+            f"({100 * kernel_ms / loop_ms:.1f}% busy); memory copies "
+            f"{copy_ms:.2f} ms; device ms by kernel:")
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+            log(f"  {ms:9.3f}  {name[:90]}")
+
+
+def solve_batched_phase(plan, a, on_card: bool):
+    """Phase 3b: ``plan.solve_batched`` on B = 8 seeded columns."""
+    import numpy as np
+
+    from repro_torch import kernels
+    n = a.shape[0]
+    b8 = np.random.default_rng(11).normal(size=(n, BATCH))
+    kernels.reset_launch_counts()
+    rep = plan.solve_batched(b8)
+    counts = kernels.launch_counts()
+    res = rep.result
+    true_relres = (np.linalg.norm(b8 - a @ rep.x, axis=0)
+                   / np.linalg.norm(b8, axis=0))
+    singles = [plan.solve(b8[:, j]).result.iterations for j in range(BATCH)]
+    log(f"solve_batched B={BATCH}: statuses {res.status_names}, iterations "
+        f"{res.iterations.tolist()} (plan.solve: {singles}), n_steps "
+        f"{res.n_steps}, max true relres {true_relres.max():.3e}, "
+        f"{rep.solve_seconds:.3f} s; launches {counts}")
+    if res.status_names != ["CONVERGED"] * BATCH:
+        raise AssertionError(f"batched path ended {res.status_names}")
+    if res.iterations.tolist() != singles:
+        raise AssertionError(f"batched counts {res.iterations.tolist()} != "
+                             f"single-RHS counts {singles}")
+    if not (rep.x.shape == (n, BATCH) and np.isfinite(rep.x).all()
+            and (true_relres < 1e-6).all()):
+        raise AssertionError(f"bad batched solution: true relres "
+                             f"{true_relres}")
+    want = dict(NO_LAUNCHES)
+    if on_card:
+        want.update(hbmc_trisolve_fused_batched=res.n_steps + 1,
+                    sell_spmv_batched=res.n_steps)
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+    return rep, b8, counts
+
+
+def serve_phase(a, plan_kw: dict, on_card: bool):
+    """Phase 3c: 24 seeded requests through a ``SolverService``."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.serve import SolverService, WallClock
+    n = a.shape[0]
+    rng = np.random.default_rng(12)
+    bs = [rng.normal(size=n) for _ in range(SERVE_REQUESTS)]
+    nan_at, zero_at = 3, 10
+    bs[nan_at][rng.integers(n)] = np.nan
+    bs[zero_at] = np.zeros(n)
+    svc = SolverService(slab_width=BATCH, quantum=SERVE_QUANTUM,
+                        clock=WallClock(), record_dispatches=True, **plan_kw)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rids = [svc.submit(a, b) for b in bs]
+    t1 = time.perf_counter()
+    svc.drain()
+    wall_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    done = [svc.completed[r] for r in rids]
+    steps = sum(e["steps"] for e in svc.dispatch_log)
+    # the plan is read only now, after the service has drained
+    plan, cache_status = svc.cache.get(a, **plan_kw)
+    if cache_status != "hit":
+        raise AssertionError(f"service plan not cached ({cache_status})")
+    log(f"service: {len(done)} requests in {wall_s:.3f} s wall "
+        f"({len(done) / wall_s:.2f} solves/s; plan build included): "
+        f"submits {t1 - t0:.3f} s (canonical CSR + fingerprints of the "
+        f"matrix, per request), drain {wall_s - (t1 - t0):.3f} s of which "
+        f"plan build {plan.timings.total:.3f} s; "
+        f"{len(svc.dispatch_log)} dispatches, {steps} slab steps, "
+        f"quarantined {svc.n_quarantined}; launches {counts}")
+    want = dict(NO_LAUNCHES)
+    if on_card:
+        want.update(hbmc_trisolve_fused_batched=len(svc.dispatch_log) + steps,
+                    sell_spmv_batched=steps)
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+    for i, c in enumerate(done):
+        want_status = ("BREAKDOWN" if i == nan_at else "CONVERGED")
+        if c.status != want_status:
+            raise AssertionError(f"request {i} ended {c.status}, expected "
+                                 f"{want_status}")
+    if done[nan_at].x is not None:
+        raise AssertionError("the NaN request returned an iterate")
+    if done[zero_at].iterations != 0 or np.any(done[zero_at].x != 0):
+        raise AssertionError("the zero request did not converge at 0")
+    healthy = [i for i in range(len(done)) if i not in (nan_at, zero_at)]
+    for i in healthy:
+        single = plan.solve(bs[i]).result.iterations
+        if done[i].iterations != single:
+            raise AssertionError(f"request {i}: {done[i].iterations} "
+                                 f"iterations, plan.solve {single}")
+    # the NaN request's slab neighbours, then others, up to 4 at least
+    nan_rid = rids[nan_at]
+    neighbours = sorted({r for e in svc.dispatch_log if nan_rid in e["rids"]
+                         for r in e["rids"]
+                         if r is not None and r != nan_rid} - {rids[zero_at]})
+    checked = [rids.index(r) for r in neighbours]
+    checked += [i for i in healthy if i not in checked][:max(0, 4 -
+                                                             len(checked))]
+    for i in checked:
+        c = done[i]
+        oracle = plan.solve_slab(bs[i], slab_width=BATCH, slot=c.slot)
+        if not np.array_equal(c.x, oracle.x):
+            raise AssertionError(f"request {i} (slot {c.slot}) is not "
+                                 f"bitwise solve_slab")
+    log(f"service: statuses as expected; {len(healthy)} healthy counts "
+        f"equal plan.solve's; requests {checked} (the NaN request's "
+        f"neighbours {[rids.index(r) for r in neighbours]}) bitwise equal "
+        f"to plan.solve_slab")
+    return wall_s, len(done), counts
 
 
 def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
         iterations: int | None = MAIN_ITERATIONS) -> list[dict]:
-    """All four phases; returns the kernel rows of the JSON line.
+    """All phases; returns the kernel rows of the JSON line.
 
     ``grid``/``scale``/``iterations`` exist so the same phases can be
     rehearsed at a small size on the CPU (``iterations=None`` skips the
@@ -205,7 +428,10 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
                                   paper_problem)
     from repro_torch.core.sell import permute_round_major
     from repro_torch.kernels import (_build, hbmc_trisolve_fused,
+                                     hbmc_trisolve_fused_batched,
+                                     hbmc_trisolve_fused_batched_ref,
                                      hbmc_trisolve_fused_ref, sell_spmv,
+                                     sell_spmv_batched, sell_spmv_batched_ref,
                                      sell_spmv_ref)
     dev = torch.device(device)
     on_card = dev.type == "cuda"
@@ -239,12 +465,16 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
         a, _ = paper_problem(name, scale=scale)
         plan = build_plan(a, shift=PAPER_SHIFTS.get(name, 0.0), **plan_kw)
         check_kernels(plan, f"{name}/{scale}", seed=10 + i)
+        check_batched_kernels(plan, f"{name}/{scale}", seed=40 + i)
         if name == "thermal2":
             plan32 = build_plan(a, dtype=torch.float32, **plan_kw)
             check_kernels(plan32, f"{name}/{scale}", seed=20)
+            check_batched_kernels(plan32, f"{name}/{scale}", seed=50)
         del plan
     plan_main = build_plan(a_main, **plan_kw)
     check_kernels(plan_main, f"thermal2/n={a_main.shape[0]}", seed=30)
+    check_batched_kernels(plan_main, f"thermal2/n={a_main.shape[0]}",
+                          seed=31, sizes=(BATCH,))
     del plan_main
 
     # -- 3. main path ---------------------------------------------------------
@@ -276,9 +506,10 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     if not (rep.x.shape == (a_main.shape[0],) and np.isfinite(rep.x).all()
             and true_relres < 1e-6):
         raise AssertionError(f"bad solution: true relres {true_relres:.3e}")
-    want = ({"hbmc_trisolve_fused": res.iterations + 1,
-             "sell_spmv": res.iterations} if on_card else
-            {"hbmc_trisolve_fused": 0, "sell_spmv": 0})
+    want = dict(NO_LAUNCHES)
+    if on_card:
+        want.update(hbmc_trisolve_fused=res.iterations + 1,
+                    sell_spmv=res.iterations)
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     # the same small solve through the kernels and through the plain path
@@ -296,18 +527,38 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
             or small_err > 1e-6):
         raise AssertionError("small solve disagrees with the CPU path")
 
-    # -- 4. times ---------------------------------------------------------------
+    # -- 3b. batched path ----------------------------------------------------
+    log(f"== 3b. batched path: plan.solve_batched, B={BATCH}, same plan")
+    rep_b, b8, counts_b = solve_batched_phase(plan, a_main, on_card)
+
+    # -- 3c. serving ----------------------------------------------------------
+    log(f"== 3c. serving: SolverService(slab_width={BATCH}, "
+        f"quantum={SERVE_QUANTUM}), {SERVE_REQUESTS} requests, same matrix")
+    serve_s, serve_n, _ = serve_phase(a_main, plan_kw, on_card)
+
+    # -- 4. times -------------------------------------------------------------
     log("== 4. times (ms)" + ("" if on_card else
                                " -- CPU rehearsal, not device times"))
     rng = np.random.default_rng(9)
     q = torch.tensor(rng.normal(size=(t.n_steps, t.lanes)), device=dev)
     x = torch.tensor(rng.normal(size=plan._spmv_n), device=dev)
+    qb = torch.tensor(rng.normal(size=(t.n_steps, t.lanes, BATCH)),
+                      device=dev)
+    xb = torch.tensor(rng.normal(size=(plan._spmv_n, BATCH)), device=dev)
     sv, sc = plan._spmv_vals, plan._spmv_cols
-    err_tri = float((hbmc_trisolve_fused(t.cols, t.vals, t.dinv, q)
-                     - hbmc_trisolve_fused_ref(t.cols, t.vals, t.dinv, q))
-                    .abs().max())
+
+    def max_abs(got, want) -> float:
+        return float((got - want).abs().max())
+
+    err_tri = max_abs(hbmc_trisolve_fused(t.cols, t.vals, t.dinv, q),
+                      hbmc_trisolve_fused_ref(t.cols, t.vals, t.dinv, q))
     y_k = sell_spmv(sv, sc, x)
-    err_spmv = float((y_k - sell_spmv_ref(sv, sc, x)).abs().max())
+    err_spmv = max_abs(y_k, sell_spmv_ref(sv, sc, x))
+    err_tri_b = max_abs(
+        hbmc_trisolve_fused_batched(t.cols, t.vals, t.dinv, qb),
+        hbmc_trisolve_fused_batched_ref(t.cols, t.vals, t.dinv, qb))
+    y_kb = sell_spmv_batched(sv, sc, xb)
+    err_spmv_b = max_abs(y_kb, sell_spmv_batched_ref(sv, sc, xb))
 
     a_rm = sp.csr_matrix(permute_round_major(plan._sysd.a_bar, plan._rm))
     with warnings.catch_warnings():
@@ -324,6 +575,11 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     if not lib_err <= 1e-12:
         raise AssertionError(f"SpMV disagrees with torch.mv on CSR: "
                              f"{lib_err:.3e}")
+    y_lib_b = torch.sparse.mm(a_lib, xb)
+    lib_err_b = rel_err(y_kb[:plan._spmv_n], y_lib_b)
+    if not lib_err_b <= 1e-12:
+        raise AssertionError(f"batched SpMV disagrees with torch.sparse.mm "
+                             f"on CSR: {lib_err_b:.3e}")
 
     reps = 50 if on_card else 2
     tri_ms = time_ms(lambda: hbmc_trisolve_fused(t.cols, t.vals, t.dinv, q),
@@ -334,34 +590,79 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     spmv_ms = time_ms(lambda: sell_spmv(sv, sc, x), 4 * reps, dev)
     spmv_plain_ms = time_ms(lambda: sell_spmv_ref(sv, sc, x), reps, dev)
     spmv_lib_ms = time_ms(lambda: torch.mv(a_lib, x), 4 * reps, dev)
-    rep2 = plan.solve(b)
-    iter_ms = rep2.solve_seconds * 1e3 / max(rep2.result.iterations, 1)
+    solve_reps = 5 if on_card else 1
+    iter_ms = loop_ms(plan.solve, b, solve_reps)
+    tri_b_ms = time_ms(
+        lambda: hbmc_trisolve_fused_batched(t.cols, t.vals, t.dinv, qb),
+        reps, dev)
+    tri_b_plain_ms = time_ms(
+        lambda: hbmc_trisolve_fused_batched_ref(t.cols, t.vals, t.dinv, qb),
+        max(reps // 5, 1), dev)
+    spmv_b_ms = time_ms(lambda: sell_spmv_batched(sv, sc, xb), 4 * reps, dev)
+    spmv_b_plain_ms = time_ms(lambda: sell_spmv_batched_ref(sv, sc, xb),
+                              reps, dev)
+    spmv_b_lib_ms = time_ms(lambda: torch.sparse.mm(a_lib, xb), 4 * reps,
+                            dev)
+    iter_b_ms = loop_ms(plan.solve_batched, b8, solve_reps)
+    # the single-RHS loop once more, after the batched work, as a check on
+    # how much the host loop's time depends on what ran before it
+    iter_late_ms = loop_ms(plan.solve, b, solve_reps)
 
-    tri_bound, tri_by = bound(trisolve_bytes(t, q),
-                              2 * t.vals.numel() + 2 * t.dinv.numel(),
-                              plan.dtype)
-    spmv_bound, spmv_by = bound(spmv_bytes(sv, sc, x), 2 * sv.numel(),
-                                plan.dtype)
+    def tri_bound(qq):
+        return bound(trisolve_bytes(t, qq),
+                     (2 * t.vals.numel() + 2 * t.dinv.numel())
+                     * (qq.numel() // (t.n_steps * t.lanes)), plan.dtype)
+
+    def spmv_bound(xx):
+        return bound(spmv_bytes(sv, sc, xx),
+                     2 * sv.numel() * (xx.numel() // xx.shape[0]),
+                     plan.dtype)
+
+    tri_bnd, tri_by = tri_bound(q)
+    spmv_bnd, spmv_by = spmv_bound(x)
+    tri_b_bnd, tri_b_by = tri_bound(qb)
+    spmv_b_bnd, spmv_b_by = spmv_bound(xb)
     log(f"trisolve apply: kernel {tri_ms:.4f}  plain {tri_plain_ms:.4f}  "
-        f"bound {tri_bound:.4f} ({tri_by}, "
+        f"bound {tri_bnd:.4f} ({tri_by}, "
         f"{trisolve_bytes(t, q) / 1e6:.1f} MB; {2 * t.n_steps} launches)")
     log(f"SELL SpMV:      kernel {spmv_ms:.4f}  plain {spmv_plain_ms:.4f}  "
-        f"bound {spmv_bound:.4f} ({spmv_by}, "
+        f"bound {spmv_bnd:.4f} ({spmv_by}, "
         f"{spmv_bytes(sv, sc, x) / 1e6:.1f} MB)  torch.mv CSR "
         f"{spmv_lib_ms:.4f}")
-    log(f"PCG iteration:  {iter_ms:.4f} ms ({rep2.result.iterations} "
-        f"iterations in {rep2.solve_seconds * 1e3:.2f} ms); host setup "
+    log(f"PCG iteration:  {spread(iter_ms)} ms; host setup "
         f"{setup_s * 1e3:.1f} ms")
-    profile_solve(plan, b)
+    log(f"batched trisolve apply, B={BATCH}: kernel {tri_b_ms:.4f}  plain "
+        f"{tri_b_plain_ms:.4f}  bound {tri_b_bnd:.4f} ({tri_b_by}, "
+        f"{trisolve_bytes(t, qb) / 1e6:.1f} MB; {2 * t.n_steps} launches)")
+    log(f"batched SELL SpMV, B={BATCH}: kernel {spmv_b_ms:.4f}  plain "
+        f"{spmv_b_plain_ms:.4f}  bound {spmv_b_bnd:.4f} ({spmv_b_by}, "
+        f"{spmv_bytes(sv, sc, xb) / 1e6:.1f} MB)  torch.sparse.mm CSR "
+        f"{spmv_b_lib_ms:.4f}")
+    iter_b_med = iter_b_ms[len(iter_b_ms) // 2]
+    log(f"batched PCG iteration, B={BATCH}: {spread(iter_b_ms)} ms, "
+        f"{iter_b_med / BATCH:.4f} ms per column at the median")
+    log(f"PCG iteration again, after the batched timings: "
+        f"{spread(iter_late_ms)} ms")
+    log(f"service: {serve_n} requests in {serve_s:.3f} s wall, "
+        f"{serve_n / serve_s:.2f} solves/s (plan build included)")
+    profile_solve(plan, b, b8)
+
+    def row(name, launches, err, ms, plain_ms, bnd, by, lib_ms):
+        return {"name": name, **KERNELS[name], "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms}
+
     return [
-        {"name": "hbmc_trisolve_fused", **KERNELS["hbmc_trisolve_fused"],
-         "launches": counts["hbmc_trisolve_fused"], "max_abs_err": err_tri,
-         "ms": tri_ms, "plain_ms": tri_plain_ms, "bound_ms": tri_bound,
-         "bound_by": tri_by, "library_ms": None},
-        {"name": "sell_spmv", **KERNELS["sell_spmv"],
-         "launches": counts["sell_spmv"], "max_abs_err": err_spmv,
-         "ms": spmv_ms, "plain_ms": spmv_plain_ms, "bound_ms": spmv_bound,
-         "bound_by": spmv_by, "library_ms": spmv_lib_ms},
+        row("hbmc_trisolve_fused", counts["hbmc_trisolve_fused"], err_tri,
+            tri_ms, tri_plain_ms, tri_bnd, tri_by, None),
+        row("sell_spmv", counts["sell_spmv"], err_spmv, spmv_ms,
+            spmv_plain_ms, spmv_bnd, spmv_by, spmv_lib_ms),
+        row("hbmc_trisolve_fused_batched",
+            counts_b["hbmc_trisolve_fused_batched"], err_tri_b, tri_b_ms,
+            tri_b_plain_ms, tri_b_bnd, tri_b_by, None),
+        row("sell_spmv_batched", counts_b["sell_spmv_batched"], err_spmv_b,
+            spmv_b_ms, spmv_b_plain_ms, spmv_b_bnd, spmv_b_by,
+            spmv_b_lib_ms),
     ]
 
 

@@ -6,4 +6,4 @@ Entry points take an explicit ``device`` (default ``"cuda"``, which raises
 without a CUDA device); the hand-written CUDA kernels run for tensors on the
 card, their plain PyTorch versions for tensors on the CPU.
 """
-from .core import SolverPlan, build_plan, solve_iccg
+from .core import SolverPlan, build_plan, solve_iccg, solve_iccg_batched

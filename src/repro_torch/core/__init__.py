@@ -16,16 +16,17 @@ from .ic0 import (FactorBreakdownError, IC0Structure, ic0, ic0_error,
                   sequential_ic_solve)
 from .iccg import (BREAKDOWN, CONVERGED, DIVERGED, DIVERGENCE_FACTOR,
                    MAXITER, RUNNING, STAGNATED, STAGNATION_WINDOW,
-                   STATUS_NAMES, UNHEALTHY_STATUSES, PCGResult, pcg,
-                   spmv_sell, status_name)
+                   STATUS_NAMES, UNHEALTHY_STATUSES, BatchedPCGResult,
+                   PCGResult, SlabState, pcg, pcg_batched, spmv_sell,
+                   spmv_sell_batched, status_name)
 from .matrices import PAPER_PROBLEMS, PAPER_SHIFTS, paper_problem
-from .plan import (ON_BREAKDOWN, SCHEDULERS, ICCGReport, SetupBreakdown,
-                   SolverPlan, build_plan)
+from .plan import (ON_BREAKDOWN, SCHEDULERS, BatchedICCGReport, ICCGReport,
+                   SetupBreakdown, SolverPlan, build_plan)
 from .sell import (FusedRoundMajorTables, PackingIndexError, RoundMajorLayout,
                    SellMatrix, StepTables, fuse_round_major, pack_factor,
                    pack_sell, pack_steps, permute_round_major, rounds_bmc,
                    rounds_hbmc, rounds_levelset, rounds_mc, rounds_natural)
-from .solvers import solve_iccg
+from .solvers import solve_iccg, solve_iccg_batched
 from .trisolve import (DeviceFusedTables, RoundMajorPreconditioner,
                        build_round_major_preconditioner_from_rounds,
-                       fused_solve)
+                       fused_solve, fused_solve_batched)

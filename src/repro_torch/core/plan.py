@@ -1,6 +1,7 @@
 """Reusable solver plan: factor once, solve many (the setup pipeline).
 
-Port of ``repro.core.plan`` for the single-RHS round-major solve.
+Port of ``repro.core.plan`` for the round-major solve: single-RHS,
+batched multi-RHS and the slab primitives of the serving layer.
 ``SolverPlan`` owns
 
     ordering            MC / BMC / HBMC permutation + padded system
@@ -13,13 +14,17 @@ Port of ``repro.core.plan`` for the single-RHS round-major solve.
 ``plan.solve(b)`` does no host-side setup: it embeds ``b`` into the
 round-major layout, runs the PCG loop on the device (the fused-trisolve and
 SELL-w SpMV kernels on the card, their plain versions on the CPU) and
-extracts ``x``.  ``plan.refactor(a_new)`` re-runs only the numeric
-factorization and repack for a matrix with the same sparsity pattern.
+extracts ``x``.  ``plan.solve_batched(B)`` does the same for the columns of
+an (n, B) block in one loop (the batched kernels), and ``new_slab_state`` /
+``run_slab`` / ``solve_slab`` are the resident-slab primitives that
+``repro_torch.serve`` drives.  ``plan.refactor(a_new)`` re-runs only the
+numeric factorization and repack for a matrix with the same sparsity
+pattern.
 
 The plan runs on the device it is given (default ``"cuda"``, which raises
 without a CUDA device).  The layout is round-major and the SpMV format
-SELL-w, the kernels' formats; the index layout, ELL, the mesh, static
-validation, batched and slab solves belong to later slices of the port.
+SELL-w, the kernels' formats; the index layout, ELL, the mesh and static
+validation belong to later slices of the port.
 """
 from __future__ import annotations
 
@@ -38,7 +43,10 @@ from .coloring import (_validate_block_size, build_blocks, color_blocks,
 from .graph import adjacency_lists, level_sets, permute_system
 from .hbmc import _validate_w, hbmc_from_bmc, pad_system_hbmc
 from .ic0 import FactorBreakdownError, ic0_refactor, ic0_structure
-from .iccg import PCGResult, _pcg_device, spmv_sell, status_name
+from .iccg import (DIVERGENCE_FACTOR, STAGNATION_WINDOW, BatchedPCGResult,
+                   PCGResult, SlabState, _pcg_batched_device, _pcg_device,
+                   _pcg_slab_device, spmv_sell, spmv_sell_batched,
+                   status_name)
 from .trisolve import (DeviceFusedTables, RoundMajorPreconditioner,
                        build_round_major_preconditioner_from_rounds)
 
@@ -59,6 +67,24 @@ class ICCGReport:
     x: np.ndarray           # solution in ORIGINAL ordering (== result.x)
     # which implementation ran the trisolve / SpMV: "cuda" (the hand-written
     # kernels) or "torch" (their plain versions, on the CPU)
+    backend: str = "cuda"
+    layout: str = "round_major"
+    spmv_backend: str = "cuda"
+    scheduler: str = "coloring"
+
+
+@dataclasses.dataclass
+class BatchedICCGReport:
+    method: str
+    result: BatchedPCGResult  # result.x is (n, B) in the caller's ordering
+    n: int
+    n_padded: int
+    n_colors: int
+    n_rounds: int
+    setup_seconds: float
+    solve_seconds: float
+    lane_occupancy: float
+    x: np.ndarray           # (n, B) solutions in ORIGINAL ordering
     backend: str = "cuda"
     layout: str = "round_major"
     spmv_backend: str = "cuda"
@@ -454,11 +480,154 @@ class SolverPlan:
     def _spmv(self, x: torch.Tensor) -> torch.Tensor:
         return spmv_sell(self._spmv_vals, self._spmv_cols, x, self._spmv_n)
 
+    def _spmv_batched(self, x: torch.Tensor) -> torch.Tensor:
+        return spmv_sell_batched(self._spmv_vals, self._spmv_cols, x,
+                                 self._spmv_n)
+
     def _embed(self, b_bar: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(self._rm.embed(b_bar), device=self.device)
 
     def _extract(self, x_dev: torch.Tensor) -> np.ndarray:
+        """Round-major (m[, B]) on the device -> caller's ordering (n[, B]);
+        only ``x_dev``'s own elements cross to the host."""
         return np.asarray(self._rm.extract(x_dev.cpu().numpy())[self._perm])
+
+    def _check_slab(self, b: np.ndarray, who: str) -> np.ndarray:
+        """Validate a multi-RHS slab: 2-D (n, B) with the plan's dtype.
+
+        A 1-D b gets its own error (naming the B=1 spelling) and a float
+        dtype mismatch is an error rather than a silent cast: the packed
+        operands are ``self.dtype``.
+        """
+        b = np.asarray(b)
+        if b.ndim == 1:
+            raise ValueError(
+                f"{who} expects b of shape ({self.n}, B), got a 1-D vector "
+                f"of shape {b.shape}; pass a single RHS as the one-column "
+                f"slab b[:, None] (B = 1), or use plan.solve")
+        if b.ndim != 2 or b.shape[0] != self.n:
+            raise ValueError(f"{who} expects b of shape "
+                             f"({self.n}, B), got {b.shape}")
+        if np.issubdtype(b.dtype, np.floating) and b.dtype != self._np_dtype:
+            raise TypeError(
+                f"{who}: b has dtype {b.dtype} but the plan's packed "
+                f"operands are {self._np_dtype}; cast b explicitly "
+                f"(b.astype({self._np_dtype})) to opt in")
+        return np.asarray(b, dtype=self._np_dtype)
+
+    # -- slab serving primitives (see repro_torch.serve) --------------------
+
+    @property
+    def slab_m(self) -> int:
+        """Length of a device-side state column in the solve layout."""
+        return self._rm.m
+
+    def embed_rhs(self, b: np.ndarray) -> torch.Tensor:
+        """Embed one RHS (original ordering, shape (n,)) into a device
+        column of the solve layout (shape (slab_m,)): the host half of
+        packing a slab slot."""
+        b = np.asarray(b, dtype=self._np_dtype)
+        if b.shape != (self.n,):
+            raise ValueError(f"plan.embed_rhs expects b of shape "
+                             f"({self.n},), got {b.shape}")
+        b_bar = np.zeros(self.n_padded, dtype=self._np_dtype)
+        b_bar[self._perm] = b
+        return self._embed(b_bar)
+
+    def extract_solution(self, x_col: torch.Tensor) -> np.ndarray:
+        """Undo ``embed_rhs``: a device column (slab_m,), such as
+        ``state.x[:, slot]`` -> x in the caller's original ordering (n,)."""
+        return self._extract(x_col)
+
+    def new_slab_state(self, slab_width: int) -> SlabState:
+        """An all-empty resident slab: every slot fresh with a zero RHS
+        (a zero residual initializes inert -- see ``SlabState``).  Every
+        field is a tensor of its own, so a slot can be written in place."""
+        if slab_width < 1:
+            raise ValueError(f"slab_width must be >= 1, got {slab_width}")
+        m, dt, dev = self.slab_m, self.dtype, self.device
+
+        def vec(fill, dtype):
+            return torch.full((slab_width,), fill, dtype=dtype, device=dev)
+
+        return SlabState(
+            x=torch.zeros((m, slab_width), dtype=dt, device=dev),
+            r=torch.zeros((m, slab_width), dtype=dt, device=dev),
+            p=torch.zeros((m, slab_width), dtype=dt, device=dev),
+            rz=vec(0.0, dt), bnorm=vec(1.0, dt),
+            active=vec(False, torch.bool), iters=vec(0, torch.int32),
+            relres=vec(0.0, dt), fresh=vec(True, torch.bool),
+            status=vec(0, torch.int32), best=vec(0.0, dt),
+            since_best=vec(0, torch.int32))
+
+    def run_slab(self, state: SlabState, rtol: float = 1e-7,
+                 maxiter: int = 10_000, quantum: int = 16,
+                 divergence_factor: float | None = DIVERGENCE_FACTOR,
+                 stagnation_window: int | None = STAGNATION_WINDOW
+                 ) -> tuple[SlabState, int]:
+        """Advance a resident slab by at most ``quantum`` PCG iterations.
+
+        Columns flagged ``fresh`` are (re)initialized from their ``r`` at
+        entry; continuing columns resume bitwise where they left off.
+        Returns ``(new_state, steps_taken)``; every inactive column of the
+        new state has a definite ``status``.  ``state`` is not written.
+        """
+        return _pcg_slab_device(
+            self._spmv_batched, self._precond.apply_batched, state,
+            rtol=rtol, maxiter=maxiter, quantum=quantum,
+            divergence_factor=divergence_factor,
+            stagnation_window=stagnation_window)
+
+    def solve_slab(self, b: np.ndarray, slab_width: int = 1,
+                   rtol: float = 1e-7, maxiter: int = 10_000,
+                   slot: int = 0) -> ICCGReport:
+        """Solve one RHS through the slab path at a given resident width.
+
+        Packs ``b`` into ``slot`` of an otherwise empty width-``slab_width``
+        slab and runs it to the end in one dispatch.  This is the oracle
+        for serving: a column served by ``repro_torch.serve.SolverService``
+        at slab width B in slot s is bitwise equal to
+        ``plan.solve_slab(b, slab_width=B, slot=s)`` -- slab columns do not
+        depend on their neighbours' contents or on dispatch boundaries, but
+        (width, slot) may pin the reduction order.  At ``slab_width=1`` it
+        is bitwise equal to ``plan.solve_batched(b[:, None])``.  Iteration
+        counts equal the single-RHS ``plan.solve`` counts.
+        """
+        t0 = time.perf_counter()
+        b = np.asarray(b, dtype=self._np_dtype)
+        if b.shape != (self.n,):
+            raise ValueError(f"plan.solve_slab expects b of shape "
+                             f"({self.n},), got {b.shape}")
+        if not 0 <= slot < slab_width:
+            raise ValueError(f"slot {slot} out of range for slab_width "
+                             f"{slab_width}")
+        state = self.new_slab_state(slab_width)
+        state.r[:, slot] = self.embed_rhs(b)     # a state of our own
+        t1 = time.perf_counter()
+        state, _ = self.run_slab(state, rtol=rtol, maxiter=maxiter,
+                                 quantum=maxiter)
+        self._sync()
+        t2 = time.perf_counter()
+        x_out = self.extract_solution(state.x[:, slot])
+        relres = float(state.relres[slot])
+        res = PCGResult(x=x_out, iterations=int(state.iters[slot]),
+                        relres=relres, converged=relres < rtol,
+                        history=np.zeros((0,)),
+                        status=status_name(state.status[slot]))
+        return self._report(ICCGReport, res, x_out, t1 - t0, t2 - t1)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _report(self, cls, res, x_out, setup_s: float, solve_s: float):
+        return cls(
+            method=self.method, result=res, n=self.n,
+            n_padded=self.n_padded, n_colors=self.n_colors,
+            n_rounds=self.n_rounds, setup_seconds=setup_s,
+            solve_seconds=solve_s, lane_occupancy=self.lane_occupancy,
+            x=x_out, backend=self.kernel_backend, layout=self.layout,
+            spmv_backend=self.kernel_backend, scheduler=self.scheduler)
 
     def solve(self, b: np.ndarray, rtol: float = 1e-7,
               maxiter: int = 10_000,
@@ -480,21 +649,38 @@ class SolverPlan:
         x, it, relres, status, hist = _pcg_device(
             self._spmv, self._precond, b_dev, rtol=rtol, maxiter=maxiter,
             record_history=record_history)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._sync()
         t2 = time.perf_counter()
         x_out = self._extract(x)
         relres = float(relres)
         res = PCGResult(x=x_out, iterations=int(it), relres=relres,
                         converged=relres < rtol, history=hist.cpu().numpy(),
                         status=status_name(status))
-        return ICCGReport(
-            method=self.method, result=res, n=self.n,
-            n_padded=self.n_padded, n_colors=self.n_colors,
-            n_rounds=self.n_rounds, setup_seconds=t1 - t0,
-            solve_seconds=t2 - t1, lane_occupancy=self.lane_occupancy,
-            x=x_out, backend=self.kernel_backend, layout=self.layout,
-            spmv_backend=self.kernel_backend, scheduler=self.scheduler)
+        return self._report(ICCGReport, res, x_out, t1 - t0, t2 - t1)
+
+    def solve_batched(self, b: np.ndarray, rtol: float = 1e-7,
+                      maxiter: int = 10_000,
+                      record_history: bool = False) -> BatchedICCGReport:
+        """Solve A x_j = b_j for all columns of ``b`` ((n, B)) in one PCG
+        loop, reusing every cached setup product."""
+        t0 = time.perf_counter()
+        b = self._check_slab(b, "plan.solve_batched")
+        b_bar = np.zeros((self.n_padded, b.shape[1]), dtype=self._np_dtype)
+        b_bar[self._perm] = b
+        b_dev = self._embed(b_bar)
+        t1 = time.perf_counter()
+        x, iters, relres, step, status, hist = _pcg_batched_device(
+            self._spmv_batched, self._precond.apply_batched, b_dev,
+            rtol=rtol, maxiter=maxiter, record_history=record_history)
+        self._sync()
+        t2 = time.perf_counter()
+        x_out = self._extract(x)
+        relres = relres.cpu().numpy()
+        res = BatchedPCGResult(x=x_out, iterations=iters.cpu().numpy(),
+                               relres=relres, converged=relres < rtol,
+                               n_steps=step, history=hist.cpu().numpy(),
+                               status=status.cpu().numpy())
+        return self._report(BatchedICCGReport, res, x_out, t1 - t0, t2 - t1)
 
 
 def build_plan(a: sp.spmatrix, method: str = "hbmc", block_size: int = 32,

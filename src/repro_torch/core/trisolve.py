@@ -7,9 +7,10 @@ packed into the fused round-major tables (``sell.fuse_round_major``): step
 stores them as one contiguous slice.  The apply's input and output are
 round-major vectors, so a PCG loop on them does no permutation at all.
 
-Every apply goes through ``kernels.hbmc_trisolve_fused``: the CUDA kernel
-for tensors on the card, its plain PyTorch version for tensors on the CPU.
-The index-space preconditioner, the batched apply and the mesh-sharded apply
+Every apply goes through ``kernels.hbmc_trisolve_fused`` (one RHS) or
+``kernels.hbmc_trisolve_fused_batched`` (B RHS held as (m, B) columns): the
+CUDA kernel for tensors on the card, its plain PyTorch version for tensors
+on the CPU.  The index-space preconditioner and the mesh-sharded apply
 belong to later slices of the port.
 """
 from __future__ import annotations
@@ -21,7 +22,8 @@ import scipy.sparse as sp
 import torch
 
 from ..kernels.config import DEFAULT_DEVICE, resolve_device
-from ..kernels.hbmc_trisolve import hbmc_trisolve_fused
+from ..kernels.hbmc_trisolve import (hbmc_trisolve_fused,
+                                     hbmc_trisolve_fused_batched)
 from .sell import (FusedRoundMajorTables, RoundMajorLayout, fuse_round_major,
                    pack_factor)
 
@@ -66,6 +68,13 @@ def fused_solve(tables: DeviceFusedTables, q: torch.Tensor) -> torch.Tensor:
     return hbmc_trisolve_fused(tables.cols, tables.vals, tables.dinv, q)
 
 
+def fused_solve_batched(tables: DeviceFusedTables,
+                        q: torch.Tensor) -> torch.Tensor:
+    """Multi-RHS fused apply.  q: (S, R, B) -> (S*R, B)."""
+    return hbmc_trisolve_fused_batched(tables.cols, tables.vals, tables.dinv,
+                                       q)
+
+
 @dataclasses.dataclass(frozen=True)
 class RoundMajorPreconditioner:
     """IC(0) apply on round-major (m,) state vectors.
@@ -82,6 +91,12 @@ class RoundMajorPreconditioner:
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
         return fused_solve(self.tables,
                            r.reshape(self.tables.n_steps, self.tables.lanes))
+
+    def apply_batched(self, r: torch.Tensor) -> torch.Tensor:
+        """The apply on B columns at once: r (m, B) -> z (m, B)."""
+        return fused_solve_batched(
+            self.tables,
+            r.reshape(self.tables.n_steps, self.tables.lanes, r.shape[-1]))
 
 
 def build_round_major_preconditioner_from_rounds(

@@ -36,6 +36,12 @@ SIGNATURES = {
     "hbmc_trisolve_fused_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "sell_spmv_f64": (_P, _P, _P, _P, _I64, _I, _I, _I64, _P),
     "sell_spmv_f32": (_P, _P, _P, _P, _I64, _I, _I, _I64, _P),
+    "hbmc_trisolve_fused_batched_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                        _P),
+    "hbmc_trisolve_fused_batched_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                        _P),
+    "sell_spmv_batched_f64": (_P, _P, _P, _P, _I64, _I, _I, _I64, _I, _P),
+    "sell_spmv_batched_f32": (_P, _P, _P, _P, _I64, _I, _I, _I64, _I, _P),
 }
 
 

@@ -34,3 +34,12 @@ def resolve_device(device: str | torch.device = DEFAULT_DEVICE
         raise ValueError(f"unsupported device {str(dev)!r}; expected 'cuda' "
                          "or 'cpu'")
     return dev
+
+
+def runs_plain(t: torch.Tensor) -> bool:
+    """Whether a kernel wrapper given ``t`` runs its plain PyTorch version
+    (``t`` on the CPU) rather than launching its CUDA kernel (``t`` on the
+    card); any other device raises ``ValueError``."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type == "cpu"

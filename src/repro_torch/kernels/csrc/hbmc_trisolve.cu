@@ -27,6 +27,18 @@
 //   * backward step g >= S writes slice 2S-1-g and takes as right-hand side
 //     the y value the same thread overwrites, read before the store.  Lanes
 //     of one round are independent: no two threads touch one y entry.
+//
+// The batched form (replaces hbmc_trisolve_fused_batched, body
+// _fused_batched_kernel) runs the same 2S launches for B right-hand sides
+// held as y (S*R, B), row-major.  One thread per (lane, column), the
+// column fastest: the B threads of a lane load the same cols/vals/dinv
+// entry (a broadcast, so the tables are read once for all B columns) and
+// their gathers y[c*B + b] hit B contiguous values.  Each thread does the
+// single-RHS arithmetic on its column in the same order, so column j of
+// the batched result is bitwise equal to the single-RHS kernel on column j.
+// Bound on the card: bytes, as above, with q and y B times larger; at B=8
+// on the same tables about 252 MB, 0.075 ms -- 1.9x the single-RHS bytes
+// for 8x the columns, behind the same 64 launches.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,6 +70,48 @@ __global__ void fused_step(const int32_t* __restrict__ cols,
   const int64_t dest = (int64_t)(g < s ? g : 2 * s - 1 - g) * r + lane;
   const T q_cur = g < s ? q[(int64_t)g * r + lane] : y[dest];
   y[dest] = (q_cur - acc) * dinv[row];
+}
+
+template <typename T>
+__global__ void fused_step_batched(const int32_t* __restrict__ cols,
+                                   const T* __restrict__ vals,
+                                   const T* __restrict__ dinv,
+                                   const T* __restrict__ q, T* y, int g,
+                                   int s, int r, int k, int nb) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (int64_t)r * nb) return;
+  const int lane = (int)(t / nb);
+  const int b = (int)(t - (int64_t)lane * nb);
+  const int64_t m = (int64_t)s * r;
+  const int64_t row = (int64_t)g * r + lane;
+  const int32_t* c = cols + row * k;
+  const T* v = vals + row * k;
+  T acc = T(0);
+  for (int j = 0; j < k; ++j) {
+    int64_t cj = c[j];
+    if (cj < 0) cj += m;
+    const T yj = (cj >= 0 && cj < m) ? y[cj * nb + b] : T(0);
+    acc = add_rn(acc, mul_rn(v[j], yj));
+  }
+  const int64_t dest = (int64_t)(g < s ? g : 2 * s - 1 - g) * r + lane;
+  const T q_cur = g < s ? q[((int64_t)g * r + lane) * nb + b]
+                        : y[dest * nb + b];
+  y[dest * nb + b] = (q_cur - acc) * dinv[row];
+}
+
+template <typename T>
+int launch_fused_batched(const int32_t* cols, const T* vals, const T* dinv,
+                         const T* q, T* y, int s, int r, int k, int nb,
+                         cudaStream_t st) {
+  const int threads = 256;
+  const int64_t blocks = ((int64_t)r * nb + threads - 1) / threads;
+  for (int g = 0; g < 2 * s; ++g) {
+    fused_step_batched<T><<<(unsigned)blocks, threads, 0, st>>>(
+        cols, vals, dinv, q, y, g, s, r, k, nb);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -93,4 +147,21 @@ extern "C" int hbmc_trisolve_fused_f32(const void* cols, const void* vals,
   return launch_fused<float>((const int32_t*)cols, (const float*)vals,
                              (const float*)dinv, (const float*)q,
                              (float*)y, s, r, k, (cudaStream_t)stream);
+}
+
+// y must hold S*R*B zeros on entry; it holds z (S*R, B) on return.
+extern "C" int hbmc_trisolve_fused_batched_f64(
+    const void* cols, const void* vals, const void* dinv, const void* q,
+    void* y, int s, int r, int k, int nb, void* stream) {
+  return launch_fused_batched<double>(
+      (const int32_t*)cols, (const double*)vals, (const double*)dinv,
+      (const double*)q, (double*)y, s, r, k, nb, (cudaStream_t)stream);
+}
+
+extern "C" int hbmc_trisolve_fused_batched_f32(
+    const void* cols, const void* vals, const void* dinv, const void* q,
+    void* y, int s, int r, int k, int nb, void* stream) {
+  return launch_fused_batched<float>(
+      (const int32_t*)cols, (const float*)vals, (const float*)dinv,
+      (const float*)q, (float*)y, s, r, k, nb, (cudaStream_t)stream);
 }

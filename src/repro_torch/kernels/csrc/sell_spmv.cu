@@ -18,6 +18,15 @@
 // outside [-n, n) reads 0 (jnp.take fill_value=0); the product is rounded
 // before it is summed, k in order; padding entries (cols = 0, vals = 0) are
 // multiplied like any other, so a NaN in x propagates as in the reference.
+//
+// The batched form (replaces sell_spmv_batched, body
+// _sell_spmv_batched_kernel) computes Y = A X for X (n, B), row-major.  One
+// thread per (row, column), the column fastest: the B threads of a row
+// share each vals/cols load, and their gathers X[c*B + b] hit B contiguous
+// values.  Each thread does the single-RHS arithmetic on its column, so
+// column j is bitwise equal to the single-RHS kernel on column j.  Bound:
+// bytes; at the 1M plan with B=8 in f64, vals + cols + X + Y is about
+// 197 MB, 0.059 ms.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -42,6 +51,41 @@ __global__ void sell_spmv_kernel(const T* __restrict__ vals,
     acc = add_rn(acc, mul_rn(vals[base + (int64_t)j * w], xc));
   }
   y[row] = acc;
+}
+
+template <typename T>
+__global__ void sell_spmv_batched_kernel(const T* __restrict__ vals,
+                                         const int32_t* __restrict__ cols,
+                                         const T* __restrict__ x,
+                                         T* __restrict__ y, int64_t n_rows,
+                                         int k, int w, int64_t nx, int nb) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n_rows * nb) return;
+  const int64_t row = t / nb;
+  const int b = (int)(t - row * nb);
+  const int64_t s = row / w;
+  const int64_t base = s * k * w + (row - s * w);
+  T acc = T(0);
+  for (int j = 0; j < k; ++j) {
+    int64_t c = cols[base + (int64_t)j * w];
+    if (c < 0) c += nx;
+    const T xc = (c >= 0 && c < nx) ? x[c * nb + b] : T(0);
+    acc = add_rn(acc, mul_rn(vals[base + (int64_t)j * w], xc));
+  }
+  y[t] = acc;
+}
+
+template <typename T>
+int launch_spmv_batched(const T* vals, const int32_t* cols, const T* x,
+                        T* y, int64_t n_slices, int k, int w, int64_t nx,
+                        int nb, cudaStream_t st) {
+  const int64_t n = n_slices * w * nb;
+  if (n == 0) return 0;
+  const int threads = 256;
+  const int64_t blocks = (n + threads - 1) / threads;
+  sell_spmv_batched_kernel<T><<<(unsigned)blocks, threads, 0, st>>>(
+      vals, cols, x, y, n_slices * w, k, w, nx, nb);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -73,4 +117,22 @@ extern "C" int sell_spmv_f32(const void* vals, const void* cols,
   return launch_spmv<float>((const float*)vals, (const int32_t*)cols,
                             (const float*)x, (float*)y, n_slices, k, w, nx,
                             (cudaStream_t)stream);
+}
+
+extern "C" int sell_spmv_batched_f64(const void* vals, const void* cols,
+                                     const void* x, void* y,
+                                     int64_t n_slices, int k, int w,
+                                     int64_t nx, int nb, void* stream) {
+  return launch_spmv_batched<double>(
+      (const double*)vals, (const int32_t*)cols, (const double*)x,
+      (double*)y, n_slices, k, w, nx, nb, (cudaStream_t)stream);
+}
+
+extern "C" int sell_spmv_batched_f32(const void* vals, const void* cols,
+                                     const void* x, void* y,
+                                     int64_t n_slices, int k, int w,
+                                     int64_t nx, int nb, void* stream) {
+  return launch_spmv_batched<float>(
+      (const float*)vals, (const int32_t*)cols, (const float*)x, (float*)y,
+      n_slices, k, w, nx, nb, (cudaStream_t)stream);
 }

@@ -1,41 +1,57 @@
-"""SELL-w sparse matrix-vector product y = A x.
+"""SELL-w sparse matrix-vector product y = A x, and Y = A X for B columns.
 
 Port of ``repro.kernels.sell_spmv.sell_spmv`` (the Pallas kernel
-``_sell_spmv_kernel``).  For a CUDA tensor the wrapper launches the
-hand-written kernel ``csrc/sell_spmv.cu`` (one thread per output row; see
-the source for its design and bound).  For a CPU tensor it runs the plain
-PyTorch version ``ref.sell_spmv_ref``.  The TPU kernel's slice-tile padding
+``_sell_spmv_kernel``) and ``sell_spmv_batched``
+(``_sell_spmv_batched_kernel``).  For a CUDA tensor each wrapper launches
+its hand-written kernel in ``csrc/sell_spmv.cu`` (one thread per output
+entry; see the source for the design and bound).  For a CPU tensor it runs
+the plain PyTorch version in ``ref``.  The TPU kernels' slice-tile padding
 was a VMEM artefact and is gone.
 
-``launches`` counts the wrapper calls that launched the CUDA kernel.
+``launches`` / ``batched_launches`` count the wrapper calls that launched
+the single-RHS / batched CUDA kernel.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from .ref import sell_spmv_ref
+from .config import runs_plain
+from .ref import sell_spmv_batched_ref, sell_spmv_ref
 
 launches = 0
+batched_launches = 0
 
-_ENTRY = {torch.float64: "sell_spmv_f64", torch.float32: "sell_spmv_f32"}
+_SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 
 
-def _check(vals, cols, x) -> None:
+def _check(vals, cols, x, x_dim: int) -> None:
     if vals.device != x.device or cols.device != x.device:
         raise ValueError(f"operands on {vals.device}/{cols.device}, x on "
                          f"{x.device}")
     if cols.dtype != torch.int32:
         raise TypeError(f"cols must be int32, got {cols.dtype}")
-    if vals.dtype not in _ENTRY or x.dtype != vals.dtype:
+    if vals.dtype not in _SUFFIX or x.dtype != vals.dtype:
         raise TypeError(f"vals and x must share float32 or float64, got "
                         f"{vals.dtype} and {x.dtype}")
-    if cols.shape != vals.shape or x.dim() != 1:
+    if cols.shape != vals.shape or vals.dim() != 3 or x.dim() != x_dim:
         raise ValueError(f"shapes: vals {tuple(vals.shape)}, cols "
                          f"{tuple(cols.shape)}, x {tuple(x.shape)}")
     for name, t in (("vals", vals), ("cols", cols), ("x", x)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _run(entry: str, vals, cols, x) -> torch.Tensor:
+    n_slices, k_, w_ = vals.shape
+    y = torch.empty((n_slices * w_,) + tuple(x.shape[1:]), dtype=vals.dtype,
+                    device=x.device)
+    if y.numel():
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _build.call(f"{entry}_{_SUFFIX[vals.dtype]}", vals.data_ptr(),
+                    cols.data_ptr(), x.data_ptr(), y.data_ptr(), n_slices,
+                    k_, w_, x.shape[0], *x.shape[1:], stream)
+    return y
 
 
 def sell_spmv(vals: torch.Tensor, cols: torch.Tensor,
@@ -52,17 +68,28 @@ def sell_spmv(vals: torch.Tensor, cols: torch.Tensor,
       y: (n_slices * w,) in slice-row-major order.
     """
     global launches
-    if x.device.type == "cpu":
+    if runs_plain(x):
         return sell_spmv_ref(vals, cols, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    _check(vals, cols, x)
-    n_slices, k_, w_ = vals.shape
-    y = torch.empty(n_slices * w_, dtype=vals.dtype, device=x.device)
-    if y.numel():
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        _build.call(_ENTRY[vals.dtype], vals.data_ptr(), cols.data_ptr(),
-                    x.data_ptr(), y.data_ptr(), n_slices, k_, w_, x.shape[0],
-                    stream)
-        launches += 1
+    _check(vals, cols, x, 1)
+    y = _run("sell_spmv", vals, cols, x)
+    launches += 1
+    return y
+
+
+def sell_spmv_batched(vals: torch.Tensor, cols: torch.Tensor,
+                      x: torch.Tensor) -> torch.Tensor:
+    """Y = A X for B column vectors at once.  x: (n_pad, B).
+
+    One load of the (K, w) index plane serves all B columns; column j of
+    the result is bitwise equal to ``sell_spmv`` on ``x[:, j]``.
+
+    Returns:
+      y: (n_slices * w, B) in slice-row-major order.
+    """
+    global batched_launches
+    if runs_plain(x):
+        return sell_spmv_batched_ref(vals, cols, x)
+    _check(vals, cols, x, 2)
+    y = _run("sell_spmv_batched", vals, cols, x)
+    batched_launches += 1
     return y

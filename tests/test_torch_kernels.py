@@ -139,7 +139,9 @@ def test_cpu_wrappers_count_no_launch():
     sell_spmv(torch.zeros(2, 1, 4, dtype=torch.float64),
               torch.zeros(2, 1, 4, dtype=torch.int32),
               torch.zeros(8, dtype=torch.float64))
-    assert launch_counts() == {"hbmc_trisolve_fused": 0, "sell_spmv": 0}
+    assert launch_counts() == {"hbmc_trisolve_fused": 0, "sell_spmv": 0,
+                               "hbmc_trisolve_fused_batched": 0,
+                               "sell_spmv_batched": 0}
 
 
 def test_wrappers_raise_off_cpu_and_cuda():

@@ -249,6 +249,7 @@ def test_refactor_rejects_new_pattern():
 
 def test_import_loads_no_jax_and_no_reference():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels\n"
+            "import repro_torch.serve\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"
