@@ -14,7 +14,8 @@ its last line:
    1M-unknown thermal2 plan.  Max relative error <= 1e-12 (f64), 1e-5 (f32).
    The batched kernels likewise at B in {1, 3, 8} on the bench tables and
    at B = 8 on the 1M tables, and each batched column bitwise equal to the
-   single-RHS kernel on that column.
+   single-RHS kernel on that column.  The single-sweep kernels (B5, B6) on
+   both sweep tables of the index-layout plans of the same matrices.
 3. Main path: ``build_plan`` + ``plan.solve`` on thermal2 at n = 1,048,576
    (laplace_2d(1024, 1024) with a log-normal coefficient), HBMC, block 16,
    w 8.  CONVERGED in 48 +- 2 iterations, true relres < 1e-6 on the host,
@@ -31,13 +32,27 @@ its last line:
    the rest CONVERGED at their single-RHS counts; the NaN request's slab
    neighbours and others bitwise equal to ``plan.solve_slab`` on the
    service's cached plan.
+3d. Index layout: ``build_plan(..., layout="index")`` on the same matrix:
+   ``plan.solve`` CONVERGED in 48 +- 2 iterations, true relres < 1e-6, two
+   single-sweep launches per apply (2 x (iterations + 1)) and one SpMV
+   launch per iteration; ``plan.solve_batched`` on the 8 columns, each at
+   its index-plan ``plan.solve`` count; one preconditioner apply bitwise
+   equal, on every live entry, to the round-major plan's fused apply of the
+   same vector; a small index solve on the card against the CPU.
+3e. Smoother: GS (omega 1) and SOR (omega 1.5) on the index plan's
+   HBMC-ordered 1M system, 20 sweeps each with finite, strictly decreasing
+   residuals; at a small size the card's residual history equal to the
+   CPU's to rtol 1e-12.
 4. Times with CUDA events after a warm-up, each beside its bound from the
    bytes it must move: per trisolve apply, per SpMV, per PCG iteration, the
    plain versions, and the cuSPARSE CSR SpMV (``torch.mv`` on a CSR tensor,
    timed as a yardstick only; the port never calls it); the same at B = 8
    for the batched kernels (cuSPARSE SpMM, ``torch.sparse.mm``, as B4's
    yardstick), ms per batched iteration, and the service's solves per
-   second.
+   second; per single sweep B5, and B6 at B = 8 (cuSPARSE SpSV / SpSM,
+   ``torch.triangular_solve`` on a CSR factor, as their yardstick where the
+   installed torch takes one), the index layout's ms per iteration and per
+   batched column, and ms per smoother sweep.
 
 Its last lines: one JSON object with a row per kernel, the card's name and
 power limit from ``nvidia-smi``, then ``{"ok": true, "device": {...}}``.
@@ -66,6 +81,7 @@ TOL = {"torch.float64": 1e-12, "torch.float32": 1e-5}
 BATCH = 8                   # columns of the batched path and slab width
 BATCH_SIZES = (1, 3, 8)     # widths of the batched kernel checks
 SERVE_REQUESTS, SERVE_QUANTUM = 24, 16
+SMOOTHER_SWEEPS = 20
 
 KERNELS = {
     "hbmc_trisolve_fused": dict(
@@ -80,6 +96,12 @@ KERNELS = {
     "sell_spmv_batched": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/sell_spmv.cu",
         replaces="src/repro/kernels/sell_spmv.py:105"),
+    "hbmc_trisolve": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/hbmc_trisolve.cu",
+        replaces="src/repro/kernels/hbmc_trisolve.py:74"),
+    "hbmc_trisolve_batched": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/hbmc_trisolve.cu",
+        replaces="src/repro/kernels/hbmc_trisolve.py:111"),
 }
 NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
@@ -141,6 +163,10 @@ def loop_ms(solve, rhs, reps: int) -> list[float]:
         trips = getattr(rep.result, "n_steps", rep.result.iterations)
         out.append(rep.solve_seconds * 1e3 / max(trips, 1))
     return sorted(out)
+
+
+def fmt_ms(ms: float | None) -> str:
+    return "none" if ms is None else f"{ms:.4f}"
 
 
 def spread(ms: list[float]) -> str:
@@ -260,7 +286,7 @@ def check_batched_kernels(plan, label: str, seed: int,
     return worst
 
 
-def profile_solve(plan, b, b_batched) -> None:
+def profile_solve(plan, b, b_batched, tag: str = "") -> None:
     """Device time by kernel over one warm ``plan.solve`` and one warm
     ``plan.solve_batched`` (torch.profiler), and the device's busy share of
     each PCG loop: kernel time over the loop's wall time.  Memory copies
@@ -270,8 +296,9 @@ def profile_solve(plan, b, b_batched) -> None:
     shows is a lower bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    for label, solve, rhs in (("solve", plan.solve, b),
-                              (f"solve_batched (B={b_batched.shape[1]})",
+    for label, solve, rhs in ((f"{tag}solve", plan.solve, b),
+                              (f"{tag}solve_batched "
+                               f"(B={b_batched.shape[1]})",
                                plan.solve_batched, b_batched)):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -410,6 +437,267 @@ def serve_phase(a, plan_kw: dict, on_card: bool):
     return wall_s, len(done), counts
 
 
+def check_sweep_kernels(plan_idx, label: str, seed: int,
+                        sizes=BATCH_SIZES) -> dict:
+    """B5/B6 vs their plain versions on both sweep tables of an index plan,
+    and each B6 column bitwise equal to B5 on that column."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import (hbmc_trisolve, hbmc_trisolve_batched,
+                                     hbmc_trisolve_batched_ref,
+                                     hbmc_trisolve_ref)
+    dev, dt = plan_idx.device, plan_idx.dtype
+    tol = TOL[str(dt)]
+    rng = np.random.default_rng(seed)
+    worst = {"hbmc_trisolve": 0.0, "hbmc_trisolve_batched": 0.0}
+    kp = plan_idx._precond.kernel
+    for sweep, t in (("fwd", kp.fwd), ("bwd", kp.bwd)):
+        shape = tuple(t.dinv.shape)
+        q = torch.tensor(rng.normal(size=shape), device=dev).to(dt)
+        y = hbmc_trisolve(t.cols, t.vals, t.dinv, q)
+        errs = [("hbmc_trisolve", 1,
+                 rel_err(y, hbmc_trisolve_ref(t.cols, t.vals, t.dinv, q)))]
+        if not torch.isfinite(y).all():
+            raise AssertionError(f"non-finite sweep output on {label}")
+        for nb in sizes:
+            qb = torch.tensor(rng.normal(size=shape + (nb,)),
+                              device=dev).to(dt)
+            yb = hbmc_trisolve_batched(t.cols, t.vals, t.dinv, qb)
+            errs.append(("hbmc_trisolve_batched", nb, rel_err(
+                yb, hbmc_trisolve_batched_ref(t.cols, t.vals, t.dinv, qb))))
+            for j in range(nb):
+                if not torch.equal(yb[:, j], hbmc_trisolve(
+                        t.cols, t.vals, t.dinv, qb[..., j].contiguous())):
+                    raise AssertionError(f"B6 column {j} of B={nb} is not "
+                                         f"bitwise B5's on {label} {sweep}")
+        for name, nb, err in errs:
+            if not err <= tol:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version on {label} {sweep}, B={nb}: "
+                                     f"{err:.3e} > {tol:g}")
+            worst[name] = max(worst[name], err)
+    log(f"  {label:<28} sweeps S={kp.fwd.dinv.shape[0]:>3} "
+        f"R={kp.fwd.dinv.shape[1]:>6} K={kp.fwd.vals.shape[-1]}/"
+        f"{kp.bwd.vals.shape[-1]}: B5 rel err {worst['hbmc_trisolve']:.3e}, "
+        f"B6 B={list(sizes)} rel err "
+        f"{worst['hbmc_trisolve_batched']:.3e}; every B6 column bitwise B5")
+    return worst
+
+
+def sweep_csr(t):
+    """The lower-triangular matrix one single sweep solves, in its own
+    round-major coordinates, as scipy CSR: lane p's gathered entries and
+    1/dinv on its diagonal; 1 on the diagonal of a hole, whose right-hand
+    side is 0.  The library yardstick solves with it."""
+    import numpy as np
+    import scipy.sparse as sp
+    cols = t.cols.cpu().numpy().astype(np.int64)
+    vals = t.vals.cpu().numpy()
+    dinv = t.dinv.cpu().numpy().reshape(-1)
+    m = dinv.size
+    rows = np.broadcast_to(np.arange(m).reshape(cols.shape[:2] + (1,)),
+                           cols.shape)
+    keep = cols < m
+    diag = np.ones(m)
+    live = dinv != 0
+    diag[live] = 1.0 / dinv[live]
+    a = sp.csr_matrix((np.concatenate([vals[keep], diag]),
+                       (np.concatenate([rows[keep], np.arange(m)]),
+                        np.concatenate([cols[keep], np.arange(m)]))),
+                      shape=(m, m))
+    a.sort_indices()
+    return a
+
+
+def library_sweep_ms(tab, q, qb, y, yb, reps: int, device):
+    """The library yardstick of B5 / B6: ``torch.triangular_solve`` on the
+    sweep's matrix as a sparse CSR tensor (cuSPARSE SpSV, and SpSM for
+    (m, B)), held against the kernels' results and timed.  Returns
+    ``(ms, ms_batched)``, each None where the installed torch refuses the
+    call (the reason is printed).  The port never calls it."""
+    import torch
+    a = sweep_csr(tab)
+    m = a.shape[0]
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "Sparse CSR tensor support")
+        warnings.filterwarnings("ignore", "Sparse invariant checks")
+        warnings.filterwarnings("ignore", ".*triangular_solve.*")
+        a_t = torch.sparse_csr_tensor(
+            torch.tensor(a.indptr, dtype=torch.int64),
+            torch.tensor(a.indices, dtype=torch.int64),
+            torch.tensor(a.data), size=a.shape).to(device)
+        out = []
+        for rhs, want in ((q.reshape(m, 1), y.reshape(m, 1)),
+                          (qb.reshape(m, -1), yb)):
+            try:
+                got = torch.triangular_solve(rhs, a_t, upper=False).solution
+            except (RuntimeError, NotImplementedError, TypeError) as e:
+                log(f"library sweep yardstick at B={rhs.shape[1]}: none "
+                    f"({type(e).__name__}: {str(e).splitlines()[0][:200]})")
+                out.append(None)
+                continue
+            err = rel_err(got, want)
+            if not err <= 1e-10:
+                raise AssertionError(f"torch.triangular_solve on CSR "
+                                     f"disagrees with the sweep kernel at "
+                                     f"B={rhs.shape[1]}: {err:.3e}")
+            out.append(time_ms(lambda: torch.triangular_solve(
+                rhs, a_t, upper=False), reps, device))
+    return tuple(out)
+
+
+def index_phase(plan, a, plan_rm, plan_kw: dict, b, b8, iterations,
+                on_card: bool):
+    """Phase 3d: the index layout plan ``plan`` on the main matrix ``a``;
+    ``plan_rm`` is the round-major plan of the same matrix.  Returns the
+    launch counts of the single-RHS and of the batched solve."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import build_plan
+    n = a.shape[0]
+    dev = plan_rm.device
+    kernels.reset_launch_counts()
+    rep = plan.solve(b)
+    counts = kernels.launch_counts()
+    res = rep.result
+    true_relres = float(np.linalg.norm(b - a @ rep.x) / np.linalg.norm(b))
+    log(f"index solve: status {res.status}, iterations {res.iterations}, "
+        f"relres {res.relres:.3e}, true relres {true_relres:.3e}, "
+        f"{rep.solve_seconds:.3f} s; launches {counts}")
+    if res.status != "CONVERGED":
+        raise AssertionError(f"index solve ended {res.status}")
+    if iterations is not None and abs(res.iterations - iterations) > \
+            ITER_BAND:
+        raise AssertionError(f"index solve: {res.iterations} iterations, "
+                             f"expected {iterations} +- {ITER_BAND}")
+    if not (rep.x.shape == (n,) and np.isfinite(rep.x).all()
+            and true_relres < 1e-6):
+        raise AssertionError(f"bad index solution: true relres "
+                             f"{true_relres:.3e}")
+    want = dict(NO_LAUNCHES)
+    if on_card:
+        want.update(hbmc_trisolve=2 * (res.iterations + 1),
+                    sell_spmv=res.iterations)
+    if counts != want:
+        raise AssertionError(f"index launch counts {counts}, expected "
+                             f"{want}")
+
+    kernels.reset_launch_counts()
+    rep_b = plan.solve_batched(b8)
+    counts_b = kernels.launch_counts()
+    res_b = rep_b.result
+    singles = [plan.solve(b8[:, j]).result.iterations
+               for j in range(b8.shape[1])]
+    true_b = (np.linalg.norm(b8 - a @ rep_b.x, axis=0)
+              / np.linalg.norm(b8, axis=0))
+    log(f"index solve_batched B={b8.shape[1]}: statuses "
+        f"{res_b.status_names}, iterations {res_b.iterations.tolist()} "
+        f"(index plan.solve: {singles}), n_steps {res_b.n_steps}, max true "
+        f"relres {true_b.max():.3e}; launches {counts_b}")
+    if (res_b.status_names != ["CONVERGED"] * b8.shape[1]
+            or res_b.iterations.tolist() != singles
+            or not (true_b < 1e-6).all()):
+        raise AssertionError("index batched solve disagrees with its "
+                             "single-RHS solves")
+    want = dict(NO_LAUNCHES)
+    if on_card:
+        want.update(hbmc_trisolve_batched=2 * (res_b.n_steps + 1),
+                    sell_spmv_batched=res_b.n_steps)
+    if counts_b != want:
+        raise AssertionError(f"index batched launch counts {counts_b}, "
+                             f"expected {want}")
+
+    # one apply of each layout on the same seeded vector, in HBMC order
+    live = ~plan._sysd.drop
+    r = np.random.default_rng(13).normal(size=(plan.n_padded, BATCH))
+    rm = plan_rm._rm
+    z_idx = plan._precond(torch.tensor(r[:, 0], device=dev)).cpu().numpy()
+    z_rm = rm.extract(plan_rm._precond(
+        torch.tensor(rm.embed(r[:, 0]), device=dev)).cpu().numpy())
+    zb_idx = plan._precond.apply_batched(
+        torch.tensor(r, device=dev)).cpu().numpy()
+    zb_rm = rm.extract(plan_rm._precond.apply_batched(
+        torch.tensor(rm.embed(r), device=dev)).cpu().numpy())
+    diff = float(np.abs(z_idx[live] - z_rm[live]).max())
+    if not (np.array_equal(z_idx[live], z_rm[live])
+            and np.array_equal(zb_idx[live], zb_rm[live])):
+        raise AssertionError(f"index apply is not bitwise the round-major "
+                             f"apply on live entries (max diff {diff:.3e})")
+    log(f"index apply (two B5 sweeps) bitwise equal to the round-major "
+        f"fused apply (B1) on all {int(live.sum())} live entries, and two "
+        f"B6 sweeps to B3 at B={BATCH}")
+
+    a_small = thermal2_matrix(48)
+    b_small = np.random.default_rng(8).normal(size=a_small.shape[0])
+    kw = {**plan_kw, "layout": "index"}
+    r_dev = build_plan(a_small, **kw).solve(b_small)
+    r_cpu = build_plan(a_small, **{**kw, "device": "cpu"}).solve(b_small)
+    small_err = float(np.abs(r_dev.x - r_cpu.x).max()
+                      / np.abs(r_cpu.x).max())
+    log(f"small index solve (n={a_small.shape[0]}): "
+        f"{r_dev.result.iterations} it vs cpu {r_cpu.result.iterations} it, "
+        f"solution rel diff {small_err:.3e}")
+    if (r_dev.result.status != "CONVERGED"
+            or abs(r_dev.result.iterations - r_cpu.result.iterations) > 1
+            or small_err > 1e-6):
+        raise AssertionError("small index solve disagrees with the CPU path")
+    return counts, counts_b
+
+
+def smoother_phase(plan_idx, b, device: str) -> float:
+    """Phase 3e: GS / SOR sweeps on the index plan's HBMC-ordered system;
+    returns ms per GS sweep on the device."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import build_plan
+    from repro_torch.core.smoothers import build_gs_smoother, gs_solve
+    sysd = plan_idx._sysd
+    b_bar = np.zeros(plan_idx.n_padded)
+    b_bar[plan_idx._perm] = b
+    args = (sysd.a_bar, sysd.fwd_rounds, sysd.bwd_rounds)
+    sweep_ms = 0.0
+    for omega in (1.0, 1.5):
+        sm = build_gs_smoother(*args, drop_mask=sysd.drop, omega=omega,
+                               device=device)
+        t0 = time.perf_counter()
+        x, hist = gs_solve(sm, b_bar, sweeps=SMOOTHER_SWEEPS,
+                           a_bar=sysd.a_bar)
+        wall = time.perf_counter() - t0
+        log(f"smoother omega={omega}: {len(hist)} sweeps in {wall:.3f} s "
+            f"(host residuals included), relres {hist[0]:.6e} -> "
+            f"{hist[-1]:.6e}")
+        if not (len(hist) == SMOOTHER_SWEEPS and np.isfinite(hist).all()
+                and np.isfinite(x).all() and (np.diff(hist) < 0).all()):
+            raise AssertionError(f"smoother omega={omega}: residuals not "
+                                 f"finite and decreasing: {hist}")
+        if omega == 1.0:
+            bd = torch.tensor(b_bar, device=sm.device)
+            xd = torch.zeros_like(bd)
+            sweep_ms = time_ms(lambda: sm.sweep(bd, xd), 10, sm.device)
+    a_small = thermal2_matrix(40)
+    p_small = build_plan(a_small, method="hbmc", block_size=16, w=8,
+                         layout="index", device="cpu")
+    ss = p_small._sysd
+    bs = np.zeros(p_small.n_padded)
+    bs[p_small._perm] = np.random.default_rng(14).normal(
+        size=a_small.shape[0])
+    hists = [gs_solve(build_gs_smoother(ss.a_bar, ss.fwd_rounds,
+                                        ss.bwd_rounds, drop_mask=ss.drop,
+                                        omega=1.5, device=dev), bs,
+                      sweeps=10, a_bar=ss.a_bar)[1]
+             for dev in (device, "cpu")]
+    rel = float(np.max(np.abs(np.subtract(*hists)) / np.abs(hists[1])))
+    log(f"small smoother (n={a_small.shape[0]}): {device} residual history "
+        f"vs cpu, max rel diff {rel:.3e}")
+    if not rel <= 1e-12:
+        raise AssertionError("small smoother history disagrees with the CPU")
+    return sweep_ms
+
+
 def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
         iterations: int | None = MAIN_ITERATIONS) -> list[dict]:
     """All phases; returns the kernel rows of the JSON line.
@@ -427,10 +715,14 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     from repro_torch.core import (PAPER_PROBLEMS, PAPER_SHIFTS, build_plan,
                                   paper_problem)
     from repro_torch.core.sell import permute_round_major
-    from repro_torch.kernels import (_build, hbmc_trisolve_fused,
+    from repro_torch.kernels import (_build, hbmc_trisolve,
+                                     hbmc_trisolve_batched,
+                                     hbmc_trisolve_batched_ref,
+                                     hbmc_trisolve_fused,
                                      hbmc_trisolve_fused_batched,
                                      hbmc_trisolve_fused_batched_ref,
-                                     hbmc_trisolve_fused_ref, sell_spmv,
+                                     hbmc_trisolve_fused_ref,
+                                     hbmc_trisolve_ref, sell_spmv,
                                      sell_spmv_batched, sell_spmv_batched_ref,
                                      sell_spmv_ref)
     dev = torch.device(device)
@@ -463,19 +755,30 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     a_main = thermal2_matrix(grid)
     for i, name in enumerate(PAPER_PROBLEMS):
         a, _ = paper_problem(name, scale=scale)
-        plan = build_plan(a, shift=PAPER_SHIFTS.get(name, 0.0), **plan_kw)
+        kw = dict(plan_kw, shift=PAPER_SHIFTS.get(name, 0.0))
+        plan = build_plan(a, **kw)
         check_kernels(plan, f"{name}/{scale}", seed=10 + i)
         check_batched_kernels(plan, f"{name}/{scale}", seed=40 + i)
+        check_sweep_kernels(build_plan(a, layout="index", **kw),
+                            f"{name}/{scale} index", seed=60 + i)
         if name == "thermal2":
             plan32 = build_plan(a, dtype=torch.float32, **plan_kw)
             check_kernels(plan32, f"{name}/{scale}", seed=20)
             check_batched_kernels(plan32, f"{name}/{scale}", seed=50)
+            check_sweep_kernels(
+                build_plan(a, dtype=torch.float32, layout="index",
+                           **plan_kw), f"{name}/{scale} index", seed=70)
         del plan
     plan_main = build_plan(a_main, **plan_kw)
     check_kernels(plan_main, f"thermal2/n={a_main.shape[0]}", seed=30)
     check_batched_kernels(plan_main, f"thermal2/n={a_main.shape[0]}",
                           seed=31, sizes=(BATCH,))
     del plan_main
+    t0 = time.perf_counter()
+    plan_idx = build_plan(a_main, layout="index", **plan_kw)
+    idx_setup_s = time.perf_counter() - t0
+    check_sweep_kernels(plan_idx, f"thermal2/n={a_main.shape[0]} index",
+                        seed=32, sizes=(BATCH,))
 
     # -- 3. main path ---------------------------------------------------------
     log("== 3. main path: build_plan + solve, thermal2 "
@@ -535,6 +838,20 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     log(f"== 3c. serving: SolverService(slab_width={BATCH}, "
         f"quantum={SERVE_QUANTUM}), {SERVE_REQUESTS} requests, same matrix")
     serve_s, serve_n, _ = serve_phase(a_main, plan_kw, on_card)
+
+    # -- 3d. index layout -----------------------------------------------------
+    kp = plan_idx._precond.kernel
+    log(f"== 3d. index layout: build_plan(layout='index') + solve and "
+        f"solve_batched B={BATCH}, same matrix; plan setup "
+        f"{idx_setup_s:.3f} s, sweep tables fwd {tuple(kp.fwd.cols.shape)}, "
+        f"bwd {tuple(kp.bwd.cols.shape)}")
+    counts_idx, counts_idx_b = index_phase(plan_idx, a_main, plan, plan_kw,
+                                           b, b8, iterations, on_card)
+
+    # -- 3e. smoother ---------------------------------------------------------
+    log(f"== 3e. smoother: GS and SOR(1.5), {SMOOTHER_SWEEPS} sweeps each on "
+        f"the index plan's HBMC-ordered system")
+    smooth_ms = smoother_phase(plan_idx, b, device)
 
     # -- 4. times -------------------------------------------------------------
     log("== 4. times (ms)" + ("" if on_card else
@@ -608,19 +925,21 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     # how much the host loop's time depends on what ran before it
     iter_late_ms = loop_ms(plan.solve, b, solve_reps)
 
-    def tri_bound(qq):
-        return bound(trisolve_bytes(t, qq),
-                     (2 * t.vals.numel() + 2 * t.dinv.numel())
-                     * (qq.numel() // (t.n_steps * t.lanes)), plan.dtype)
+    def tri_bound(tab, qq):
+        """Bytes of ``trisolve_bytes``; per lane and column 2K operations
+        for the sum and 2 for the subtract and scale."""
+        return bound(trisolve_bytes(tab, qq),
+                     (2 * tab.vals.numel() + 2 * tab.dinv.numel())
+                     * (qq.numel() // tab.dinv.numel()), plan.dtype)
 
     def spmv_bound(xx):
         return bound(spmv_bytes(sv, sc, xx),
                      2 * sv.numel() * (xx.numel() // xx.shape[0]),
                      plan.dtype)
 
-    tri_bnd, tri_by = tri_bound(q)
+    tri_bnd, tri_by = tri_bound(t, q)
     spmv_bnd, spmv_by = spmv_bound(x)
-    tri_b_bnd, tri_b_by = tri_bound(qb)
+    tri_b_bnd, tri_b_by = tri_bound(t, qb)
     spmv_b_bnd, spmv_b_by = spmv_bound(xb)
     log(f"trisolve apply: kernel {tri_ms:.4f}  plain {tri_plain_ms:.4f}  "
         f"bound {tri_bnd:.4f} ({tri_by}, "
@@ -645,7 +964,67 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
         f"{spread(iter_late_ms)} ms")
     log(f"service: {serve_n} requests in {serve_s:.3f} s wall, "
         f"{serve_n / serve_s:.2f} solves/s (plan build included)")
+
+    # the index layout: one sweep (forward tables), B5 and B6 at B = 8
+    tf = plan_idx._precond.kernel.fwd
+    qs = torch.tensor(rng.normal(size=tuple(tf.dinv.shape)), device=dev)
+    qsb = torch.tensor(rng.normal(size=tuple(tf.dinv.shape) + (BATCH,)),
+                       device=dev)
+    y_sw = hbmc_trisolve(tf.cols, tf.vals, tf.dinv, qs)
+    y_sw_b = hbmc_trisolve_batched(tf.cols, tf.vals, tf.dinv, qsb)
+    err_sw = max_abs(y_sw, hbmc_trisolve_ref(tf.cols, tf.vals, tf.dinv, qs))
+    err_sw_b = max_abs(y_sw_b, hbmc_trisolve_batched_ref(tf.cols, tf.vals,
+                                                         tf.dinv, qsb))
+    sw_ms = time_ms(lambda: hbmc_trisolve(tf.cols, tf.vals, tf.dinv, qs),
+                    reps, dev)
+    sw_plain_ms = time_ms(
+        lambda: hbmc_trisolve_ref(tf.cols, tf.vals, tf.dinv, qs),
+        max(reps // 5, 1), dev)
+    sw_b_ms = time_ms(
+        lambda: hbmc_trisolve_batched(tf.cols, tf.vals, tf.dinv, qsb), reps,
+        dev)
+    sw_b_plain_ms = time_ms(
+        lambda: hbmc_trisolve_batched_ref(tf.cols, tf.vals, tf.dinv, qsb),
+        max(reps // 5, 1), dev)
+    sw_lib_ms, sw_b_lib_ms = library_sweep_ms(tf, qs, qsb, y_sw, y_sw_b,
+                                              reps, dev)
+    sw_bnd, sw_by = tri_bound(tf, qs)
+    sw_b_bnd, sw_b_by = tri_bound(tf, qsb)
+    # one HBMC -> round-major permutation of an (n, 8) block: the port's
+    # scatter, and the reference's row gather qp[rows] for comparison
+    n_idx = plan_idx.n_padded
+    q_hbmc = torch.tensor(rng.normal(size=(n_idx, BATCH)), device=dev)
+    qp = torch.cat([q_hbmc, q_hbmc.new_zeros((1, BATCH))])
+    rows_ref = torch.clamp(tf.rows, max=n_idx)
+    perm_ms = time_ms(lambda: tf.to_round_major(q_hbmc), reps, dev)
+    perm_gather_ms = time_ms(lambda: qp[rows_ref], reps, dev)
+    iter_idx_ms = loop_ms(plan_idx.solve, b, solve_reps)
+    iter_idx_b_ms = loop_ms(plan_idx.solve_batched, b8, solve_reps)
+    iter_rm_ms = loop_ms(plan.solve, b, solve_reps)
+    iter_rm_b_ms = loop_ms(plan.solve_batched, b8, solve_reps)
+    sw_lanes = tf.dinv.shape
+    log(f"index sweep (B5, one of two per apply): kernel {sw_ms:.4f}  "
+        f"plain {sw_plain_ms:.4f}  bound {sw_bnd:.4f} ({sw_by}, "
+        f"{trisolve_bytes(tf, qs) / 1e6:.1f} MB; {sw_lanes[0]} launches)  "
+        f"library {fmt_ms(sw_lib_ms)}")
+    log(f"index sweep B6, B={BATCH}: kernel {sw_b_ms:.4f}  plain "
+        f"{sw_b_plain_ms:.4f}  bound {sw_b_bnd:.4f} ({sw_b_by}, "
+        f"{trisolve_bytes(tf, qsb) / 1e6:.1f} MB; {sw_lanes[0]} launches)  "
+        f"library {fmt_ms(sw_b_lib_ms)}")
+    log(f"index PCG iteration: {spread(iter_idx_ms)} ms; round-major in "
+        f"turn: {spread(iter_rm_ms)} ms")
+    med_idx_b = iter_idx_b_ms[len(iter_idx_b_ms) // 2]
+    med_rm_b = iter_rm_b_ms[len(iter_rm_b_ms) // 2]
+    log(f"index batched PCG iteration, B={BATCH}: {spread(iter_idx_b_ms)} "
+        f"ms, {med_idx_b / BATCH:.4f} ms per column; round-major in turn: "
+        f"{spread(iter_rm_b_ms)} ms, {med_rm_b / BATCH:.4f} per column")
+    log(f"index permutation of an (n, {BATCH}) block, HBMC -> round-major: "
+        f"scatter (the port) {perm_ms:.4f} ms, row gather qp[rows] (the "
+        f"reference's form) {perm_gather_ms:.4f} ms; 4 per apply")
+    log(f"GS sweep on the main HBMC system (PyTorch ops, "
+        f"{sw_lanes[0]} rounds): {smooth_ms:.4f} ms")
     profile_solve(plan, b, b8)
+    profile_solve(plan_idx, b, b8, tag="index ")
 
     def row(name, launches, err, ms, plain_ms, bnd, by, lib_ms):
         return {"name": name, **KERNELS[name], "launches": launches,
@@ -663,6 +1042,11 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
         row("sell_spmv_batched", counts_b["sell_spmv_batched"], err_spmv_b,
             spmv_b_ms, spmv_b_plain_ms, spmv_b_bnd, spmv_b_by,
             spmv_b_lib_ms),
+        row("hbmc_trisolve", counts_idx["hbmc_trisolve"], err_sw, sw_ms,
+            sw_plain_ms, sw_bnd, sw_by, sw_lib_ms),
+        row("hbmc_trisolve_batched", counts_idx_b["hbmc_trisolve_batched"],
+            err_sw_b, sw_b_ms, sw_b_plain_ms, sw_b_bnd, sw_b_by,
+            sw_b_lib_ms),
     ]
 
 

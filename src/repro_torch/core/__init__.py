@@ -1,8 +1,8 @@
 """Core library of the port: HBMC ordering + parallel ICCG on PyTorch.
 
 The host-side setup modules (graph, matrices, coloring, hbmc, ic0, sell) are
-numpy/scipy copies of the reference's; trisolve, iccg and plan run the
-solve on a torch device.
+numpy/scipy copies of the reference's; trisolve, iccg, plan and smoothers
+run on a torch device.
 """
 from .coloring import (BlockPartition, BMCOrdering, MCOrdering,
                        block_multicolor_ordering, build_blocks, color_blocks,
@@ -17,16 +17,25 @@ from .ic0 import (FactorBreakdownError, IC0Structure, ic0, ic0_error,
 from .iccg import (BREAKDOWN, CONVERGED, DIVERGED, DIVERGENCE_FACTOR,
                    MAXITER, RUNNING, STAGNATED, STAGNATION_WINDOW,
                    STATUS_NAMES, UNHEALTHY_STATUSES, BatchedPCGResult,
-                   PCGResult, SlabState, pcg, pcg_batched, spmv_sell,
-                   spmv_sell_batched, status_name)
+                   PCGResult, SlabState, pcg, pcg_batched, spmv_ell,
+                   spmv_ell_batched, spmv_sell, spmv_sell_batched,
+                   status_name)
 from .matrices import PAPER_PROBLEMS, PAPER_SHIFTS, paper_problem
-from .plan import (ON_BREAKDOWN, SCHEDULERS, BatchedICCGReport, ICCGReport,
-                   SetupBreakdown, SolverPlan, build_plan)
+from .plan import (ON_BREAKDOWN, SCHEDULERS, SPMV_FORMATS, BatchedICCGReport,
+                   ICCGReport, SetupBreakdown, SolverPlan, build_plan)
 from .sell import (FusedRoundMajorTables, PackingIndexError, RoundMajorLayout,
-                   SellMatrix, StepTables, fuse_round_major, pack_factor,
-                   pack_sell, pack_steps, permute_round_major, rounds_bmc,
-                   rounds_hbmc, rounds_levelset, rounds_mc, rounds_natural)
+                   RoundMajorTables, SellMatrix, StepTables, fuse_round_major,
+                   pack_ell, pack_factor, pack_factor_hbmc, pack_sell,
+                   pack_steps, permute_round_major, round_major_layout,
+                   rounds_bmc, rounds_hbmc, rounds_levelset, rounds_mc,
+                   rounds_natural, to_round_major)
+from .smoothers import GSSmoother, build_gs_smoother, gs_solve
 from .solvers import solve_iccg, solve_iccg_batched
-from .trisolve import (DeviceFusedTables, RoundMajorPreconditioner,
+from .trisolve import (LAYOUTS, DeviceFusedTables, DeviceTables,
+                       HBMCPreconditioner, RoundMajorPreconditioner,
+                       backward_solve, backward_solve_batched,
+                       build_preconditioner, build_preconditioner_from_rounds,
                        build_round_major_preconditioner_from_rounds,
-                       fused_solve, fused_solve_batched)
+                       forward_solve, forward_solve_batched, fused_solve,
+                       fused_solve_batched, sequential_backward,
+                       sequential_forward)

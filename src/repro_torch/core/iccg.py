@@ -7,8 +7,10 @@ each loop as a device-side ``lax.while_loop``; here it is a host loop over
 device tensors that reads one device flag per iteration (``.item()``, the
 loop condition).  The state, the health monitor and the final status stay
 on the device and follow the reference step for step.  The SpMV is the
-SELL-w product through ``kernels.sell_spmv`` / ``sell_spmv_batched``; dots
-and axpys are PyTorch ops, as they were XLA ops in the reference.
+SELL-w product through ``kernels.sell_spmv`` / ``sell_spmv_batched``, or the
+row-major ELL product ``spmv_ell`` (PyTorch ops: the reference never had an
+ELL kernel); dots and axpys are PyTorch ops, as they were XLA ops in the
+reference.
 
 The batched loops compute per-column dots and norms as plain reductions
 over dim 0 (``(p * ap).sum(0)``, ``vector_norm(r, dim=0)``), never as a
@@ -26,6 +28,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..kernels.ref import _sum_over_k
 from ..kernels.sell_spmv import sell_spmv, sell_spmv_batched
 
 # ---------------------------------------------------------------------------
@@ -58,6 +61,23 @@ STAGNATION_WINDOW = 1000
 def status_name(code) -> str:
     """Human-readable name of a solve-status code."""
     return STATUS_NAMES[int(code)]
+
+
+def spmv_ell(vals: torch.Tensor, cols: torch.Tensor,
+             x: torch.Tensor) -> torch.Tensor:
+    """(n, K) row-major ELL SpMV: y_i = sum_k vals[i,k] * x[cols[i,k]]; or,
+    for x (n, B), the same for each column.  The sum runs over k in order,
+    so a batched column is bitwise the single-column product."""
+    v = vals.reshape(vals.shape + (1,) * (x.dim() - 1))
+    return _sum_over_k(v * x[cols], dim=1)
+
+
+def spmv_ell_batched(vals: torch.Tensor, cols: torch.Tensor,
+                     x: torch.Tensor) -> torch.Tensor:
+    """ELL SpMV over B column vectors at once.  x: (n, B) -> (n, B)."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be (n, B), got {tuple(x.shape)}")
+    return spmv_ell(vals, cols, x)
 
 
 def spmv_sell(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,

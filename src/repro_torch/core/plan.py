@@ -1,30 +1,32 @@
 """Reusable solver plan: factor once, solve many (the setup pipeline).
 
-Port of ``repro.core.plan`` for the round-major solve: single-RHS,
-batched multi-RHS and the slab primitives of the serving layer.
+Port of ``repro.core.plan`` on one device: single-RHS, batched multi-RHS
+and the slab primitives of the serving layer, in both layouts.
 ``SolverPlan`` owns
 
     ordering            MC / BMC / HBMC permutation + padded system
     rounds              execution-ordered independent row sets
     IC(0) structure     pattern-only analysis (``ic0_structure``)
     IC(0) factor        round-parallel numeric phase (``ic0_refactor``)
-    packed tables       fused round-major tables on the device
-    SpMV operand        SELL-w packing of the round-major matrix on the device
+    packed tables       fused round-major tables (``layout="round_major"``)
+                        or one round-major table per sweep
+                        (``layout="index"``), on the device
+    SpMV operand        SELL-w or ELL packing of the matrix in the solve
+                        layout, on the device
 
-``plan.solve(b)`` does no host-side setup: it embeds ``b`` into the
-round-major layout, runs the PCG loop on the device (the fused-trisolve and
-SELL-w SpMV kernels on the card, their plain versions on the CPU) and
-extracts ``x``.  ``plan.solve_batched(B)`` does the same for the columns of
-an (n, B) block in one loop (the batched kernels), and ``new_slab_state`` /
+``plan.solve(b)`` does no host-side setup: it embeds ``b`` into the solve
+layout, runs the PCG loop on the device (the trisolve and SELL-w SpMV
+kernels on the card, their plain versions on the CPU) and extracts ``x``.
+``plan.solve_batched(B)`` does the same for the columns of an (n, B)
+block in one loop (the batched kernels), and ``new_slab_state`` /
 ``run_slab`` / ``solve_slab`` are the resident-slab primitives that
 ``repro_torch.serve`` drives.  ``plan.refactor(a_new)`` re-runs only the
 numeric factorization and repack for a matrix with the same sparsity
 pattern.
 
 The plan runs on the device it is given (default ``"cuda"``, which raises
-without a CUDA device).  The layout is round-major and the SpMV format
-SELL-w, the kernels' formats; the index layout, ELL, the mesh and static
-validation belong to later slices of the port.
+without a CUDA device).  The mesh and static validation belong to later
+slices of the port.
 """
 from __future__ import annotations
 
@@ -45,12 +47,14 @@ from .hbmc import _validate_w, hbmc_from_bmc, pad_system_hbmc
 from .ic0 import FactorBreakdownError, ic0_refactor, ic0_structure
 from .iccg import (DIVERGENCE_FACTOR, STAGNATION_WINDOW, BatchedPCGResult,
                    PCGResult, SlabState, _pcg_batched_device, _pcg_device,
-                   _pcg_slab_device, spmv_sell, spmv_sell_batched,
-                   status_name)
-from .trisolve import (DeviceFusedTables, RoundMajorPreconditioner,
+                   _pcg_slab_device, spmv_ell, spmv_ell_batched, spmv_sell,
+                   spmv_sell_batched, status_name)
+from .trisolve import (LAYOUTS, DeviceFusedTables, RoundMajorPreconditioner,
+                       build_preconditioner_from_rounds,
                        build_round_major_preconditioner_from_rounds)
 
 _NP_DTYPES = {torch.float64: np.float64, torch.float32: np.float32}
+SPMV_FORMATS = ("sell", "ell")
 
 
 @dataclasses.dataclass
@@ -221,15 +225,16 @@ def _occupancy_from_rounds(rounds, drop) -> float:
     return float(np.mean(live / rmax)) if len(live) else 1.0
 
 
-def _check_unported(layout: str, spmv_format: str, validate: str,
-                    mesh) -> None:
-    """Options of the reference plan that later slices of the port add."""
-    if layout != "round_major":
-        raise ValueError(f"layout={layout!r} is not ported; the port runs "
-                         "layout='round_major'")
-    if spmv_format != "sell":
-        raise ValueError(f"spmv_format={spmv_format!r} is not ported; the "
-                         "port runs spmv_format='sell'")
+def _check_knobs(layout: str, spmv_format: str, validate: str,
+                 mesh) -> None:
+    """Unknown layouts and formats raise, as in the reference; so do the
+    reference's options that later slices of the port add."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}; expected one of "
+                         f"{LAYOUTS}")
+    if spmv_format not in SPMV_FORMATS:
+        raise ValueError(f"unknown spmv_format {spmv_format!r}; expected "
+                         f"one of {SPMV_FORMATS}")
     if validate != "off":
         raise ValueError(f"validate={validate!r} is not ported; the port "
                          "runs validate='off'")
@@ -255,7 +260,7 @@ class SolverPlan:
                  validate: str = "off", scheduler: str = "coloring",
                  device: str | torch.device = DEFAULT_DEVICE):
         device = resolve_device(device)
-        _check_unported(layout, spmv_format, validate, mesh)
+        _check_knobs(layout, spmv_format, validate, mesh)
         if scheduler not in SCHEDULERS:
             raise ValueError(f"unknown scheduler {scheduler!r}; expected "
                              f"one of {SCHEDULERS}")
@@ -266,6 +271,8 @@ class SolverPlan:
             raise ValueError(f"unknown on_breakdown {on_breakdown!r}; "
                              f"expected one of {ON_BREAKDOWN}")
         self._init_common(device, dtype)
+        self.layout = layout
+        self.spmv_format = spmv_format
         self.method = method
         self.scheduler = scheduler
         self.block_size = block_size
@@ -310,8 +317,6 @@ class SolverPlan:
         self.device = device
         self.dtype = dtype
         self._np_dtype = np.dtype(_NP_DTYPES[dtype])
-        self.spmv_format = "sell"
-        self.layout = "round_major"
         self.setup_count = 0
         self.refactor_count = 0
 
@@ -330,8 +335,10 @@ class SolverPlan:
           perm, n, n_padded     original index -> ordered index, and sizes
 
         and optionally ``method`` and ``n_colors`` for the report.  The
-        plan's dtype is that of ``vals``.  It can solve but not
-        ``refactor``: the setup state it would renew was never built here.
+        plan's dtype is that of ``vals``; its layout is round-major and its
+        SpMV format SELL-w (the tables above are theirs).  It can solve but
+        not ``refactor``: the setup state it would renew was never built
+        here.
         """
         device = resolve_device(device)
         t0 = time.perf_counter()
@@ -339,6 +346,7 @@ class SolverPlan:
         vals_dtype = np.asarray(arrays["vals"]).dtype
         plan._init_common(device, {np.dtype(v): k for k, v in
                                    _NP_DTYPES.items()}.get(vals_dtype))
+        plan.layout, plan.spmv_format = "round_major", "sell"
         plan.method = str(arrays.get("method", "unknown"))
         plan.scheduler = "coloring"
         plan.n, plan.n_padded = int(arrays["n"]), int(arrays["n_padded"])
@@ -387,13 +395,30 @@ class SolverPlan:
         self._spmv_n = n
 
     def _build_operators(self, l_bar) -> None:
-        """Pack the factor + the SELL-w operand and move them to the device."""
-        self._precond, self._rm = build_round_major_preconditioner_from_rounds(
-            l_bar, self._sysd.fwd_rounds, self._sysd.bwd_rounds,
-            drop_mask=self._sysd.drop, dtype=self.dtype, device=self.device)
-        a_op = sell.permute_round_major(self._sysd.a_bar, self._rm)
-        sm = sell.pack_sell(a_op, self.w)
-        self._set_spmv_operand(sm.vals, sm.cols, sm.n)
+        """Pack the factor + the SpMV operand in the plan's layout and
+        format, and move them to the device.  The index layout has no
+        round-major state map (``_rm`` is None): its vectors are in HBMC
+        order, of length ``n_padded``."""
+        sysd = self._sysd
+        if self.layout == "round_major":
+            self._precond, self._rm = \
+                build_round_major_preconditioner_from_rounds(
+                    l_bar, sysd.fwd_rounds, sysd.bwd_rounds,
+                    drop_mask=sysd.drop, dtype=self.dtype,
+                    device=self.device)
+            a_op = sell.permute_round_major(sysd.a_bar, self._rm)
+        else:
+            self._precond = build_preconditioner_from_rounds(
+                l_bar, sysd.fwd_rounds, sysd.bwd_rounds, drop_mask=sysd.drop,
+                dtype=self.dtype, device=self.device)
+            self._rm = None
+            a_op = sysd.a_bar
+        if self.spmv_format == "sell":
+            sm = sell.pack_sell(a_op, self.w)
+            self._set_spmv_operand(sm.vals, sm.cols, sm.n)
+        else:
+            cols, vals = sell.pack_ell(a_op)
+            self._set_spmv_operand(vals, cols, a_op.shape[0])
 
     def _factor(self, a_bar: sp.csr_matrix) -> sp.csr_matrix:
         """Numeric IC(0) sweep under the plan's ``on_breakdown`` policy.
@@ -478,19 +503,30 @@ class SolverPlan:
     # -- solving ------------------------------------------------------------
 
     def _spmv(self, x: torch.Tensor) -> torch.Tensor:
+        if self.spmv_format == "ell":
+            return spmv_ell(self._spmv_vals, self._spmv_cols, x)
         return spmv_sell(self._spmv_vals, self._spmv_cols, x, self._spmv_n)
 
     def _spmv_batched(self, x: torch.Tensor) -> torch.Tensor:
+        if self.spmv_format == "ell":
+            return spmv_ell_batched(self._spmv_vals, self._spmv_cols, x)
         return spmv_sell_batched(self._spmv_vals, self._spmv_cols, x,
                                  self._spmv_n)
 
     def _embed(self, b_bar: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(self._rm.embed(b_bar), device=self.device)
+        """HBMC-ordered (n_padded[, B]) -> a device tensor in the solve
+        layout."""
+        if self._rm is not None:
+            b_bar = self._rm.embed(b_bar)
+        return torch.as_tensor(b_bar, device=self.device)
 
     def _extract(self, x_dev: torch.Tensor) -> np.ndarray:
-        """Round-major (m[, B]) on the device -> caller's ordering (n[, B]);
-        only ``x_dev``'s own elements cross to the host."""
-        return np.asarray(self._rm.extract(x_dev.cpu().numpy())[self._perm])
+        """Solve layout (slab_m[, B]) on the device -> caller's ordering
+        (n[, B]); only ``x_dev``'s own elements cross to the host."""
+        x_bar = x_dev.cpu().numpy()
+        if self._rm is not None:
+            x_bar = self._rm.extract(x_bar)
+        return np.asarray(x_bar[self._perm])
 
     def _check_slab(self, b: np.ndarray, who: str) -> np.ndarray:
         """Validate a multi-RHS slab: 2-D (n, B) with the plan's dtype.
@@ -520,7 +556,7 @@ class SolverPlan:
     @property
     def slab_m(self) -> int:
         """Length of a device-side state column in the solve layout."""
-        return self._rm.m
+        return self._rm.m if self._rm is not None else self.n_padded
 
     def embed_rhs(self, b: np.ndarray) -> torch.Tensor:
         """Embed one RHS (original ordering, shape (n,)) into a device
@@ -700,6 +736,15 @@ def build_plan(a: sp.spmatrix, method: str = "hbmc", block_size: int = 32,
     ``scheduler`` picks how the ordered pattern is cut into parallel rounds:
     ``"coloring"`` uses the method's color rounds, ``"levelset"`` the
     dependency levels of the ordered pattern.
+
+    ``layout`` picks the preconditioner's coordinates: ``"round_major"``
+    (state vectors in execution order, one fused 2S-step sweep per apply,
+    no permutation in the loop) or ``"index"`` (state in HBMC order, two
+    S-step sweeps per apply, each permuting into and out of round-major
+    order).  ``spmv_format`` is ``"sell"`` (the SELL-w kernel)
+    or ``"ell"`` (row-major ELL in PyTorch ops).  The port's default is
+    ``"sell"``, where the reference's is ``"ell"``: a deliberate
+    difference, since the SELL-w product is the one with a kernel.
     """
     return SolverPlan(a, method=method, block_size=block_size, w=w,
                       shift=shift, spmv_format=spmv_format, dtype=dtype,

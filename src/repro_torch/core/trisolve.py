@@ -1,31 +1,131 @@
-"""Round-major IC(0) apply: the fused forward/backward substitution (§4.3).
+"""Vectorized forward/backward substitution over HBMC step tables (§4.3).
 
-Port of the round-major half of ``repro.core.trisolve``.  The factor is
-packed into the fused round-major tables (``sell.fuse_round_major``): step
-``g`` of ``2S`` gathers from previous rounds, forms
-``t = (q - sum_k vals * y[cols]) * dinv`` for the R lanes of its round and
-stores them as one contiguous slice.  The apply's input and output are
-round-major vectors, so a PCG loop on them does no permutation at all.
+Port of ``repro.core.trisolve`` for one device, in two layouts
+(``build_plan(layout=...)``):
 
-Every apply goes through ``kernels.hbmc_trisolve_fused`` (one RHS) or
-``kernels.hbmc_trisolve_fused_batched`` (B RHS held as (m, B) columns): the
-CUDA kernel for tensors on the card, its plain PyTorch version for tensors
-on the CPU.  The index-space preconditioner and the mesh-sharded apply
-belong to later slices of the port.
+* ``"round_major"`` (the default): the factor is packed into the fused
+  round-major tables (``sell.fuse_round_major``): step ``g`` of ``2S``
+  gathers from previous rounds, forms ``t = (q - sum_k vals * y[cols]) *
+  dinv`` for the R lanes of its round and stores them as one contiguous
+  slice.  The apply's input and output are round-major vectors, so a PCG
+  loop on them does no permutation at all.  ``RoundMajorPreconditioner``
+  runs ``kernels.hbmc_trisolve_fused`` (one RHS) or
+  ``kernels.hbmc_trisolve_fused_batched`` (B RHS held as (m, B) columns).
+* ``"index"``: the apply works on vectors in HBMC (permuted-matrix) order.
+  ``HBMCPreconditioner`` holds a ``kernels.ops.KernelPreconditioner``,
+  which permutes each sweep's input into round-major order, runs
+  ``kernels.hbmc_trisolve`` / ``hbmc_trisolve_batched`` and permutes the
+  result back: two sweeps and four permutations per apply.
+
+Every kernel wrapper launches its CUDA kernel for tensors on the card and
+runs its plain PyTorch version for tensors on the CPU.
+
+``DeviceTables`` and ``_substitute`` are the reference's index-space
+substitution (its ``backend="xla"``), written as PyTorch ops on whatever
+device holds the tables: a scatter by ``rows`` per round, with an optional
+starting iterate ``x0``.  They carry the GS/SOR smoothers
+(``core.smoothers``) and the tests; the plan's preconditioner never runs
+them.  The mesh-sharded apply belongs to a later slice of the port.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import scipy.sparse as sp
 import torch
+from scipy.sparse.linalg import spsolve_triangular
 
 from ..kernels.config import DEFAULT_DEVICE, resolve_device
 from ..kernels.hbmc_trisolve import (hbmc_trisolve_fused,
                                      hbmc_trisolve_fused_batched)
-from .sell import (FusedRoundMajorTables, RoundMajorLayout, fuse_round_major,
-                   pack_factor)
+from ..kernels.ref import _sum_over_k
+from .hbmc import HBMCOrdering
+from .sell import (FusedRoundMajorTables, RoundMajorLayout, StepTables,
+                   fuse_round_major, pack_factor, pack_factor_hbmc)
+
+LAYOUTS = ("round_major", "index")
+
+
+@dataclasses.dataclass
+class DeviceTables:
+    """``sell.StepTables`` as tensors on one device."""
+    rows: torch.Tensor   # (S, R) int64 -- HBMC row of each lane (pad -> n)
+    cols: torch.Tensor   # (S, R, K) int64 -- HBMC columns (pad -> n)
+    vals: torch.Tensor   # (S, R, K)
+    dinv: torch.Tensor   # (S, R)
+    n_slots: int
+
+    @classmethod
+    def from_host(cls, t: StepTables, dtype: torch.dtype = torch.float64,
+                  device: str | torch.device = DEFAULT_DEVICE
+                  ) -> "DeviceTables":
+        device = resolve_device(device)
+        return cls(rows=torch.tensor(t.rows, dtype=torch.int64,
+                                     device=device),
+                   cols=torch.tensor(t.cols, dtype=torch.int64,
+                                     device=device),
+                   vals=torch.tensor(t.vals, device=device).to(dtype),
+                   dinv=torch.tensor(t.dinv, device=device).to(dtype),
+                   n_slots=t.n_slots)
+
+
+def _substitute(tables: DeviceTables, q: torch.Tensor,
+                x0: torch.Tensor | None = None) -> torch.Tensor:
+    """Run all rounds of one triangular solve.  q: (n_slots-1[, B]).
+
+    With ``x0`` the vector starts from an existing iterate and the rounds
+    overwrite it in place: a Gauss-Seidel sweep when the tables hold the
+    full off-diagonal part of A (``core.smoothers``).  The sum over K runs
+    in k order, so column j of a (n, B) solve is bitwise the solve of
+    column j.  Pad lanes gather only the dump slot ``n_slots-1`` with
+    ``vals = dinv = 0`` and so all write +0 there: the repeated indices of
+    the per-round scatter carry one value.
+    """
+    extra = tuple(q.shape[1:])
+    pad = q.new_zeros((1,) + extra)
+    y = torch.cat([q.new_zeros(q.shape) if x0 is None else x0, pad])
+    qp = torch.cat([q, pad])
+    ones = (1,) * len(extra)
+    for s in range(tables.rows.shape[0]):
+        rows = tables.rows[s]                                  # (R,)
+        acc = _sum_over_k(
+            tables.vals[s].reshape(tables.vals.shape[1:] + ones)
+            * y[tables.cols[s]], dim=1)                        # (R[, B])
+        y[rows] = (qp[rows] - acc) * tables.dinv[s].reshape(
+            tables.dinv.shape[1:] + ones)
+    return y[:-1]
+
+
+def _substitute_batched(tables: DeviceTables,
+                        q: torch.Tensor) -> torch.Tensor:
+    """Multi-RHS ``_substitute``.  q: (n_slots-1, B)."""
+    if q.dim() != 2:
+        raise ValueError(f"q must be (n, B), got {tuple(q.shape)}")
+    return _substitute(tables, q)
+
+
+def forward_solve(tables: DeviceTables, q: torch.Tensor) -> torch.Tensor:
+    """y = L^{-1} q over the packed forward tables (eq. 4.12-4.18)."""
+    return _substitute(tables, q)
+
+
+def backward_solve(tables: DeviceTables, y: torch.Tensor) -> torch.Tensor:
+    """z = L^{-T} y over the packed backward tables."""
+    return _substitute(tables, y)
+
+
+def forward_solve_batched(tables: DeviceTables,
+                          q: torch.Tensor) -> torch.Tensor:
+    """Y = L^{-1} Q over the packed forward tables.  Q: (n, B)."""
+    return _substitute_batched(tables, q)
+
+
+def backward_solve_batched(tables: DeviceTables,
+                           y: torch.Tensor) -> torch.Tensor:
+    """Z = L^{-T} Y over the packed backward tables.  Y: (n, B)."""
+    return _substitute_batched(tables, y)
 
 
 @dataclasses.dataclass
@@ -113,3 +213,69 @@ def build_round_major_preconditioner_from_rounds(
         tables=DeviceFusedTables.from_host(fused_h, dtype=dtype,
                                            device=device))
     return pre, fused_h.layout
+
+
+@dataclasses.dataclass(frozen=True)
+class HBMCPreconditioner:
+    """IC(0) apply  M^{-1} r = (L L^T)^{-1} r  on vectors in HBMC order.
+
+    ``kernel`` is a ``kernels.ops.KernelPreconditioner``: both sweeps run
+    through the single-sweep kernels (B5 for one RHS, B6 for (n, B)), the
+    CUDA kernels on the card and their plain versions on the CPU.
+    """
+    kernel: Any
+    n_final: int
+
+    @property
+    def n_rounds(self) -> int:
+        return int(self.kernel.fwd.dinv.shape[0])
+
+    def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        return self.kernel(r)
+
+    def apply_batched(self, r: torch.Tensor) -> torch.Tensor:
+        """Multi-RHS apply: r (n, B) -> (n, B), columns independent."""
+        return self.kernel.apply_batched(r)
+
+
+def _assemble_preconditioner(fwd_h: StepTables, bwd_h: StepTables,
+                             n_final: int, dtype: torch.dtype,
+                             device: str | torch.device
+                             ) -> HBMCPreconditioner:
+    # deferred: kernels.ops imports core.sell, and so this package
+    from ..kernels.ops import build_kernel_preconditioner
+    return HBMCPreconditioner(
+        kernel=build_kernel_preconditioner(fwd_h, bwd_h, dtype=dtype,
+                                           device=device),
+        n_final=n_final)
+
+
+def build_preconditioner(l_final: sp.csr_matrix, ordering: HBMCOrdering,
+                         dtype: torch.dtype = torch.float64,
+                         device: str | torch.device = DEFAULT_DEVICE
+                         ) -> HBMCPreconditioner:
+    fwd_h, bwd_h = pack_factor_hbmc(l_final, ordering)
+    return _assemble_preconditioner(fwd_h, bwd_h, ordering.n_final, dtype,
+                                    device)
+
+
+def build_preconditioner_from_rounds(
+        l_final: sp.csr_matrix, fwd_rounds, bwd_rounds, drop_mask=None,
+        dtype: torch.dtype = torch.float64,
+        device: str | torch.device = DEFAULT_DEVICE) -> HBMCPreconditioner:
+    """Generic variant: MC / BMC / natural solvers share the machinery."""
+    fwd_h, bwd_h = pack_factor(l_final, fwd_rounds, bwd_rounds, drop_mask)
+    return _assemble_preconditioner(fwd_h, bwd_h, l_final.shape[0], dtype,
+                                    device)
+
+
+# ---------------------------------------------------------------------------
+# Sequential oracle (host), used by tests to pin down exact semantics.
+# ---------------------------------------------------------------------------
+
+def sequential_forward(l: sp.csr_matrix, q: np.ndarray) -> np.ndarray:
+    return spsolve_triangular(sp.csr_matrix(l), q, lower=True)
+
+
+def sequential_backward(l: sp.csr_matrix, y: np.ndarray) -> np.ndarray:
+    return spsolve_triangular(sp.csr_matrix(l).T.tocsr(), y, lower=False)

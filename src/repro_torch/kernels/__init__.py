@@ -2,19 +2,26 @@
 
 hbmc_trisolve -- the fused forward+backward HBMC sweep, the IC(0) apply,
 single-RHS and batched (``csrc/hbmc_trisolve.cu``; replaces the Pallas
-``hbmc_trisolve_fused`` and ``hbmc_trisolve_fused_batched``).
+``hbmc_trisolve_fused`` and ``hbmc_trisolve_fused_batched``), and the
+single sweep of the index layout, single-RHS and batched (replaces the
+Pallas ``hbmc_trisolve`` and ``hbmc_trisolve_batched``).
 
 sell_spmv -- the SELL-w SpMV, single-RHS and batched (``csrc/sell_spmv.cu``;
 replaces the Pallas ``sell_spmv`` and ``sell_spmv_batched``).
 
 Each wrapper runs its CUDA kernel for a CUDA tensor and its plain version
 (``ref.py``) for a CPU tensor, and counts its kernel launches.
+
+``ops`` (imported on its own, since it reads ``repro_torch.core.sell``)
+carries the index layout's tables and its kernel preconditioner.
 """
 from . import hbmc_trisolve as _hbmc_trisolve_mod
 from . import sell_spmv as _sell_spmv_mod
 from .config import DEFAULT_DEVICE, resolve_device
-from .hbmc_trisolve import hbmc_trisolve_fused, hbmc_trisolve_fused_batched
-from .ref import (hbmc_trisolve_fused_batched_ref, hbmc_trisolve_fused_ref,
+from .hbmc_trisolve import (hbmc_trisolve, hbmc_trisolve_batched,
+                            hbmc_trisolve_fused, hbmc_trisolve_fused_batched)
+from .ref import (hbmc_trisolve_batched_ref, hbmc_trisolve_fused_batched_ref,
+                  hbmc_trisolve_fused_ref, hbmc_trisolve_ref,
                   sell_spmv_batched_ref, sell_spmv_ref, take_fill0)
 from .sell_spmv import sell_spmv, sell_spmv_batched
 
@@ -24,6 +31,8 @@ _COUNTED = {
     "sell_spmv": (_sell_spmv_mod, "launches"),
     "hbmc_trisolve_fused_batched": (_hbmc_trisolve_mod, "batched_launches"),
     "sell_spmv_batched": (_sell_spmv_mod, "batched_launches"),
+    "hbmc_trisolve": (_hbmc_trisolve_mod, "sweep_launches"),
+    "hbmc_trisolve_batched": (_hbmc_trisolve_mod, "sweep_batched_launches"),
 }
 
 

@@ -42,6 +42,10 @@ SIGNATURES = {
                                         _P),
     "sell_spmv_batched_f64": (_P, _P, _P, _P, _I64, _I, _I, _I64, _I, _P),
     "sell_spmv_batched_f32": (_P, _P, _P, _P, _I64, _I, _I, _I64, _I, _P),
+    "hbmc_trisolve_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "hbmc_trisolve_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "hbmc_trisolve_batched_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "hbmc_trisolve_batched_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,15 +1,22 @@
-"""Fused HBMC triangular sweep: the IC(0) apply z = (L L^T)^{-1} q.
+"""HBMC triangular sweeps in round-major coordinates.
 
-Port of ``repro.kernels.hbmc_trisolve.hbmc_trisolve_fused`` (the Pallas
-kernel ``_fused_kernel``) and of its multi-RHS form
-``hbmc_trisolve_fused_batched`` (``_fused_batched_kernel``).  For a CUDA
-tensor each wrapper launches its hand-written kernel in
-``csrc/hbmc_trisolve.cu`` (one launch per fused step, the kernel boundary
-being the round barrier; see the source for the design and bound).  For a
-CPU tensor it runs the plain PyTorch version in ``ref``.
+Ports of the four Pallas kernels of ``repro.kernels.hbmc_trisolve``:
+
+* ``hbmc_trisolve_fused`` (``_fused_kernel``) and its multi-RHS form
+  ``hbmc_trisolve_fused_batched`` (``_fused_batched_kernel``): the IC(0)
+  apply z = (L L^T)^{-1} q, forward and backward sweeps fused into 2S steps;
+* ``hbmc_trisolve`` (``_trisolve_kernel``) and ``hbmc_trisolve_batched``
+  (``_trisolve_batched_kernel``): one sweep of S steps, the index layout's
+  forward or backward solve.
+
+For a CUDA tensor each wrapper launches its hand-written kernel in
+``csrc/hbmc_trisolve.cu`` (one launch per step, the kernel boundary being
+the round barrier; see the source for the design and bound).  For a CPU
+tensor it runs the plain PyTorch version in ``ref``.
 
 ``launches`` / ``batched_launches`` count the wrapper calls that launched
-the single-RHS / batched CUDA kernel.
+the fused single-RHS / batched CUDA kernel, ``sweep_launches`` /
+``sweep_batched_launches`` those of the single sweep.
 """
 from __future__ import annotations
 
@@ -17,10 +24,13 @@ import torch
 
 from . import _build
 from .config import runs_plain
-from .ref import hbmc_trisolve_fused_batched_ref, hbmc_trisolve_fused_ref
+from .ref import (hbmc_trisolve_batched_ref, hbmc_trisolve_fused_batched_ref,
+                  hbmc_trisolve_fused_ref, hbmc_trisolve_ref)
 
 launches = 0
 batched_launches = 0
+sweep_launches = 0
+sweep_batched_launches = 0
 
 _FLOATS = (torch.float64, torch.float32)
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
@@ -48,8 +58,8 @@ def _check(cols, vals, dinv, q) -> None:
 
 
 def _run(entry: str, cols, vals, dinv, q) -> torch.Tensor:
-    """Check the operands and launch the 2S steps of ``entry`` into a
-    zeroed (S*R[, B]) buffer; returns it."""
+    """Check the operands and launch the steps of ``entry`` (2S fused, S
+    for one sweep) into a zeroed (S*R[, B]) buffer; returns it."""
     _check(cols, vals, dinv, q)
     s_, r_, k_ = q.shape[0], q.shape[1], cols.shape[2]
     y = torch.zeros((s_ * r_,) + tuple(q.shape[2:]), dtype=vals.dtype,
@@ -110,4 +120,50 @@ def hbmc_trisolve_fused_batched(cols: torch.Tensor, vals: torch.Tensor,
         return hbmc_trisolve_fused_batched_ref(cols, vals, dinv, q)
     y = _run("hbmc_trisolve_fused_batched", cols, vals, dinv, q)
     batched_launches += 1
+    return y
+
+
+def hbmc_trisolve(cols: torch.Tensor, vals: torch.Tensor, dinv: torch.Tensor,
+                  q: torch.Tensor) -> torch.Tensor:
+    """One round-major triangular sweep (``sell.to_round_major`` tables).
+
+    Args:
+      cols: (S, R, K) int32 -- round-major gather positions; step s reads
+        only slices 0..s-1 (every packed table satisfies this, and the CUDA
+        kernel relies on it); ``S*R`` marks a hole and reads 0.
+      vals: (S, R, K) -- off-diagonal values (0 on padding).
+      dinv: (S, R) -- inverse diagonal (0 on padding lanes).
+      q:    (S, R) -- right-hand side in round-major layout.
+
+    Returns:
+      y: (S*R,) solution in round-major layout.
+    """
+    global sweep_launches
+    if q.shape != cols.shape[:2]:
+        raise ValueError(f"q shape {tuple(q.shape)} != rounds shape "
+                         f"{tuple(cols.shape[:2])}")
+    if runs_plain(q):
+        return hbmc_trisolve_ref(cols, vals, dinv, q)
+    y = _run("hbmc_trisolve", cols, vals, dinv, q)
+    sweep_launches += 1
+    return y
+
+
+def hbmc_trisolve_batched(cols: torch.Tensor, vals: torch.Tensor,
+                          dinv: torch.Tensor, q: torch.Tensor
+                          ) -> torch.Tensor:
+    """Multi-RHS sweep.  q: (S, R, B) -> y: (S*R, B).
+
+    The B right-hand sides share every load of cols/vals/dinv; column j of
+    the result is bitwise equal to ``hbmc_trisolve`` on ``q[..., j]`` (on
+    the card and on the CPU alike).  Any B >= 1.
+    """
+    global sweep_batched_launches
+    if q.dim() != 3 or q.shape[:2] != cols.shape[:2]:
+        raise ValueError(f"q shape {tuple(q.shape)} != "
+                         f"{tuple(cols.shape[:2])} + (B,)")
+    if runs_plain(q):
+        return hbmc_trisolve_batched_ref(cols, vals, dinv, q)
+    y = _run("hbmc_trisolve_batched", cols, vals, dinv, q)
+    sweep_batched_launches += 1
     return y

@@ -1,12 +1,13 @@
 """Plain PyTorch versions of the port's kernels.
 
-Counterparts of ``repro.kernels.ref.hbmc_trisolve_fused_ref``,
-``hbmc_trisolve_fused_batched_ref``, ``sell_spmv_ref`` and
-``sell_spmv_batched_ref``, with the same op order: an elementwise multiply,
-then a sum over K.  The sum runs over k in order, one rounded add at a
-time, as the CUDA kernels do, so column j of a batched version is bitwise
-equal to the single version on column j (``torch.sum``'s reduction order
-depends on the layout, and would break that).  The wrappers in
+Counterparts of the six functions of ``repro.kernels.ref``
+(``hbmc_trisolve_ref``, ``hbmc_trisolve_batched_ref``,
+``hbmc_trisolve_fused_ref``, ``hbmc_trisolve_fused_batched_ref``,
+``sell_spmv_ref`` and ``sell_spmv_batched_ref``), with the same op order:
+an elementwise multiply, then a sum over K.  The sum runs over k in order,
+one rounded add at a time, as the CUDA kernels do, so column j of a batched
+version is bitwise equal to the single version on column j (``torch.sum``'s
+reduction order depends on the layout, and would break that).  The wrappers in
 ``hbmc_trisolve.py`` / ``sell_spmv.py`` run these for CPU tensors; on the
 card they are what each CUDA kernel is held against.
 """
@@ -41,6 +42,42 @@ def _sum_over_k(prod: torch.Tensor, dim: int) -> torch.Tensor:
     return acc
 
 
+def _sweep_step(y: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+                dinv: torch.Tensor, q_cur: torch.Tensor) -> torch.Tensor:
+    """One round: ``(q_cur - sum_k vals * y[cols]) * dinv`` for its R lanes
+    (and B columns when ``y`` is (m, B))."""
+    extra = (1,) * (y.dim() - 1)
+    acc = _sum_over_k(vals.reshape(vals.shape + extra) * take_fill0(y, cols),
+                      dim=1)                                   # (R[, B])
+    return (q_cur - acc) * dinv.reshape(dinv.shape + extra)
+
+
+def hbmc_trisolve_ref(cols: torch.Tensor, vals: torch.Tensor,
+                      dinv: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """One round-major triangular sweep.  cols: (S, R, K).
+
+    q: (S, R) -> y: (S*R,); or, for B right-hand sides at once, q: (S, R, B)
+    -> y: (S*R, B).  Step s gathers from earlier slices only and stores
+    slice s; ``S*R`` in ``cols`` marks a hole and reads 0.
+    """
+    s_, r_, _ = cols.shape
+    y = torch.zeros((s_ * r_,) + tuple(q.shape[2:]), dtype=vals.dtype,
+                    device=vals.device)
+    for s in range(s_):
+        y[s * r_:(s + 1) * r_] = _sweep_step(y, cols[s], vals[s], dinv[s],
+                                             q[s])
+    return y
+
+
+def hbmc_trisolve_batched_ref(cols: torch.Tensor, vals: torch.Tensor,
+                              dinv: torch.Tensor, q: torch.Tensor
+                              ) -> torch.Tensor:
+    """Multi-RHS sweep.  cols: (S, R, K); q: (S, R, B) -> (S*R, B)."""
+    if q.dim() != 3:
+        raise ValueError(f"q must be (S, R, B), got {tuple(q.shape)}")
+    return hbmc_trisolve_ref(cols, vals, dinv, q)
+
+
 def hbmc_trisolve_fused_ref(cols: torch.Tensor, vals: torch.Tensor,
                             dinv: torch.Tensor, q: torch.Tensor
                             ) -> torch.Tensor:
@@ -57,12 +94,9 @@ def hbmc_trisolve_fused_ref(cols: torch.Tensor, vals: torch.Tensor,
     y = torch.zeros((s_ * r_,) + cols_b, dtype=vals.dtype,
                     device=vals.device)
     for g in range(s2):
-        v = vals[g].reshape(vals.shape[1:] + (1,) * len(cols_b))
-        acc = _sum_over_k(v * take_fill0(y, cols[g]), dim=1)   # (R[, B])
-        d = dinv[g].reshape(dinv.shape[1:] + (1,) * len(cols_b))
         dest = (g if g < s_ else s2 - 1 - g) * r_
         q_cur = q[g] if g < s_ else y[dest:dest + r_]
-        y[dest:dest + r_] = (q_cur - acc) * d
+        y[dest:dest + r_] = _sweep_step(y, cols[g], vals[g], dinv[g], q_cur)
     return y
 
 

@@ -57,7 +57,8 @@ import torch
 from ..core.iccg import (DIVERGENCE_FACTOR, STAGNATION_WINDOW,
                          UNHEALTHY_STATUSES, SlabState, status_name)
 from ..core.ic0 import FactorBreakdownError
-from ..core.plan import _NP_DTYPES, SolverPlan, build_plan
+from ..core.plan import _NP_DTYPES, SPMV_FORMATS, SolverPlan, build_plan
+from ..core.trisolve import LAYOUTS
 from ..kernels.config import DEFAULT_DEVICE, resolve_device
 
 # ---------------------------------------------------------------------------
@@ -123,10 +124,12 @@ class PlanKey:
                     **extra) -> tuple["PlanKey", sp.csr_matrix]:
         """Key for (a, knobs); also returns the canonicalized CSR matrix.
 
-        The JAX-only knobs (``backend``, ``spmv_backend``, ``interpret``)
-        are unknown knobs here (``TypeError``).  ``mesh=`` and
-        ``lane_multiple != 1`` belong to the port's mesh slice
-        (``ValueError``).
+        ``layout`` is ``"round_major"`` or ``"index"``, ``spmv_format``
+        ``"sell"`` or ``"ell"``; an unknown value raises ``ValueError``
+        before the matrix is hashed.  The JAX-only knobs (``backend``,
+        ``spmv_backend``, ``interpret``) are unknown knobs here
+        (``TypeError``).  ``mesh=`` and ``lane_multiple != 1`` belong to the
+        port's mesh slice (``ValueError``).
         """
         if extra.get("mesh") is not None:
             raise ValueError("mesh plans are not cacheable, and mesh= is not "
@@ -142,6 +145,12 @@ class PlanKey:
         if dtype not in _NP_DTYPES:
             raise TypeError(f"dtype must be torch.float64 or torch.float32, "
                             f"got {dtype}")
+        if layout not in LAYOUTS:
+            raise ValueError(f"unknown layout {layout!r}; expected one of "
+                             f"{LAYOUTS}")
+        if spmv_format not in SPMV_FORMATS:
+            raise ValueError(f"unknown spmv_format {spmv_format!r}; "
+                             f"expected one of {SPMV_FORMATS}")
         a = _as_csr(a)
         key = cls(pattern=pattern_fingerprint(a), n=int(a.shape[0]),
                   method=method, block_size=int(block_size), w=int(w),

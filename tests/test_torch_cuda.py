@@ -16,17 +16,25 @@ import torch
 from repro_torch import kernels
 from repro_torch.core import build_plan, paper_problem
 from repro_torch.core.matrices import laplace_2d
-from repro_torch.kernels import (hbmc_trisolve_fused,
+from repro_torch.core.smoothers import build_gs_smoother, gs_solve
+from repro_torch.kernels import (hbmc_trisolve, hbmc_trisolve_batched,
+                                 hbmc_trisolve_batched_ref,
+                                 hbmc_trisolve_fused,
                                  hbmc_trisolve_fused_batched,
                                  hbmc_trisolve_fused_batched_ref,
-                                 hbmc_trisolve_fused_ref, sell_spmv,
-                                 sell_spmv_batched, sell_spmv_batched_ref,
-                                 sell_spmv_ref)
+                                 hbmc_trisolve_fused_ref, hbmc_trisolve_ref,
+                                 sell_spmv, sell_spmv_batched,
+                                 sell_spmv_batched_ref, sell_spmv_ref)
 from repro_torch.serve import SolverService, VirtualClock
 
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+
+def _launched(**counts):
+    """The launch counts of a run that launched only ``counts``."""
+    return {**dict.fromkeys(kernels.launch_counts(), 0), **counts}
 
 
 @pytest.fixture
@@ -57,9 +65,8 @@ def test_kernels_match_plain_on_card(cuda, name, dtype):
     y = sell_spmv(plan._spmv_vals, plan._spmv_cols, x)
     torch.cuda.synchronize()
     after = kernels.launch_counts()
-    assert {k: after[k] - before[k] for k in after} == {
-        "hbmc_trisolve_fused": 1, "sell_spmv": 1,
-        "hbmc_trisolve_fused_batched": 0, "sell_spmv_batched": 0}
+    assert {k: after[k] - before[k] for k in after} == _launched(
+        hbmc_trisolve_fused=1, sell_spmv=1)
     assert _rel(z, hbmc_trisolve_fused_ref(t.cols, t.vals, t.dinv, q)) \
         <= TOL[dtype]
     assert _rel(y, sell_spmv_ref(plan._spmv_vals, plan._spmv_cols, x)) \
@@ -101,10 +108,8 @@ def test_solve_on_card_matches_cpu(cuda):
     ref = build_plan(a, block_size=8, w=4, device="cpu").solve(b)
     assert rep.result.status == ref.result.status == "CONVERGED"
     assert abs(rep.result.iterations - ref.result.iterations) <= 1
-    assert counts == {"hbmc_trisolve_fused": rep.result.iterations + 1,
-                      "sell_spmv": rep.result.iterations,
-                      "hbmc_trisolve_fused_batched": 0,
-                      "sell_spmv_batched": 0}
+    assert counts == _launched(hbmc_trisolve_fused=rep.result.iterations + 1,
+                               sell_spmv=rep.result.iterations)
     np.testing.assert_allclose(rep.x, ref.x, rtol=1e-6, atol=1e-8)
     assert rep.backend == "cuda"
 
@@ -131,9 +136,8 @@ def test_batched_kernels_match_plain_and_single_on_card(cuda, name, dtype,
     y = sell_spmv_batched(sv, sc, x)
     torch.cuda.synchronize()
     after = kernels.launch_counts()
-    assert {k: after[k] - before[k] for k in after} == {
-        "hbmc_trisolve_fused": 0, "sell_spmv": 0,
-        "hbmc_trisolve_fused_batched": 1, "sell_spmv_batched": 1}
+    assert {k: after[k] - before[k] for k in after} == _launched(
+        hbmc_trisolve_fused_batched=1, sell_spmv_batched=1)
     assert _rel(z, hbmc_trisolve_fused_batched_ref(t.cols, t.vals, t.dinv,
                                                    q)) <= TOL[dtype]
     assert _rel(y, sell_spmv_batched_ref(sv, sc, x)) <= TOL[dtype]
@@ -156,9 +160,9 @@ def test_solve_batched_on_card_matches_cpu(cuda):
     assert rep.result.status_names == ["CONVERGED"] * 3
     np.testing.assert_array_equal(rep.result.iterations,
                                   ref.result.iterations)
-    assert counts == {"hbmc_trisolve_fused": 0, "sell_spmv": 0,
-                      "hbmc_trisolve_fused_batched": rep.result.n_steps + 1,
-                      "sell_spmv_batched": rep.result.n_steps}
+    assert counts == _launched(
+        hbmc_trisolve_fused_batched=rep.result.n_steps + 1,
+        sell_spmv_batched=rep.result.n_steps)
     np.testing.assert_allclose(rep.x, ref.x, rtol=1e-9, atol=1e-11)
 
 
@@ -185,3 +189,69 @@ def test_service_on_card_is_bitwise_solve_slab(cuda):
         assert c.status == "CONVERGED"
         np.testing.assert_array_equal(
             c.x, plan.solve_slab(b, slab_width=4, slot=c.slot).x)
+
+
+@pytest.mark.parametrize("nb", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("name", ["thermal2", "audikw_1"])
+def test_sweep_kernels_match_plain_on_card(cuda, name, dtype, nb):
+    """B5/B6 on both sweeps of an index plan against their plain versions,
+    and each B6 column bitwise equal to B5 on that column."""
+    a, _ = paper_problem(name, scale="tiny")
+    plan = build_plan(a, block_size=8, w=4, dtype=dtype, layout="index",
+                      device=cuda)
+    rng = np.random.default_rng(nb)
+    for t in (plan._precond.kernel.fwd, plan._precond.kernel.bwd):
+        q = torch.tensor(rng.normal(size=tuple(t.dinv.shape)),
+                         device=cuda).to(dtype)
+        qb = torch.tensor(rng.normal(size=tuple(t.dinv.shape) + (nb,)),
+                          device=cuda).to(dtype)
+        before = kernels.launch_counts()
+        y = hbmc_trisolve(t.cols, t.vals, t.dinv, q)
+        yb = hbmc_trisolve_batched(t.cols, t.vals, t.dinv, qb)
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        assert {k: after[k] - before[k] for k in after} == _launched(
+            hbmc_trisolve=1, hbmc_trisolve_batched=1)
+        assert _rel(y, hbmc_trisolve_ref(t.cols, t.vals, t.dinv, q)) \
+            <= TOL[dtype]
+        assert _rel(yb, hbmc_trisolve_batched_ref(t.cols, t.vals, t.dinv,
+                                                  qb)) <= TOL[dtype]
+        for j in range(nb):
+            torch.testing.assert_close(
+                yb[:, j], hbmc_trisolve(t.cols, t.vals, t.dinv,
+                                        qb[..., j].contiguous()),
+                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("fmt", ["sell", "ell"])
+def test_index_solve_on_card_matches_cpu(cuda, fmt):
+    a = laplace_2d(30, 27)
+    b = np.random.default_rng(4).normal(size=a.shape[0])
+    knobs = dict(block_size=8, w=4, layout="index", spmv_format=fmt)
+    kernels.reset_launch_counts()
+    rep = build_plan(a, device=cuda, **knobs).solve(b)
+    counts = kernels.launch_counts()
+    ref = build_plan(a, device="cpu", **knobs).solve(b)
+    assert rep.result.status == ref.result.status == "CONVERGED"
+    assert abs(rep.result.iterations - ref.result.iterations) <= 1
+    assert counts == _launched(
+        hbmc_trisolve=2 * (rep.result.iterations + 1),
+        sell_spmv=rep.result.iterations if fmt == "sell" else 0)
+    np.testing.assert_allclose(rep.x, ref.x, rtol=1e-6, atol=1e-8)
+
+
+def test_smoother_on_card_matches_cpu(cuda):
+    a = laplace_2d(20, 17)
+    rng = np.random.default_rng(5)
+    plan = build_plan(a, block_size=8, w=4, layout="index", device="cpu")
+    a_hb = plan._sysd.a_bar
+    b = np.zeros(plan.n_padded)
+    b[plan._perm] = rng.normal(size=a.shape[0])
+    args = (a_hb, plan._sysd.fwd_rounds, plan._sysd.bwd_rounds)
+    hists = [gs_solve(build_gs_smoother(*args, drop_mask=plan._sysd.drop,
+                                        omega=1.5, device=dev), b,
+                      sweeps=10, a_bar=a_hb)[1] for dev in (cuda, "cpu")]
+    np.testing.assert_allclose(hists[0], hists[1], rtol=1e-12)
+    assert all(np.diff(hists[0]) < 0)

@@ -249,7 +249,8 @@ def test_refactor_rejects_new_pattern():
 
 def test_import_loads_no_jax_and_no_reference():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels\n"
-            "import repro_torch.serve\n"
+            "import repro_torch.serve, repro_torch.kernels.ops\n"
+            "import repro_torch.core.smoothers\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"
@@ -278,11 +279,20 @@ def test_resolve_device_rejects_other_devices():
         resolve_device("meta")
 
 
-@pytest.mark.parametrize("bad", [dict(layout="index"),
-                                 dict(spmv_format="ell"),
-                                 dict(validate="cheap"),
+@pytest.mark.parametrize("bad", [dict(validate="cheap"),
                                  dict(mesh=object())],
-                         ids=["layout", "spmv_format", "validate", "mesh"])
+                         ids=["validate", "mesh"])
 def test_unported_options_raise(bad):
     with pytest.raises(ValueError, match="not ported"):
+        build_plan(laplace_2d(6, 6), block_size=BS, w=W, device="cpu", **bad)
+
+
+@pytest.mark.parametrize("bad,match", [(dict(layout="banana"), "layout"),
+                                       (dict(spmv_format="csr"),
+                                        "spmv_format")],
+                         ids=["layout", "spmv_format"])
+def test_unknown_layout_or_format_raises(bad, match):
+    """As in the reference (tests/test_round_major.py): an unknown layout
+    or SpMV format is a ValueError naming the knob."""
+    with pytest.raises(ValueError, match=f"unknown {match}"):
         build_plan(laplace_2d(6, 6), block_size=BS, w=W, device="cpu", **bad)
