@@ -15,28 +15,40 @@ its last line:
    The batched kernels likewise at B in {1, 3, 8} on the bench tables and
    at B = 8 on the 1M tables, and each batched column bitwise equal to the
    single-RHS kernel on that column.  The single-sweep kernels (B5, B6) on
-   both sweep tables of the index-layout plans of the same matrices.
+   both sweep tables of the index-layout plans of the same matrices.  B3
+   and B6, which launch once per barrier-free segment of their table, are
+   held bitwise (max error 0.0) to their plain versions and to the same
+   kernel cut into one launch per step, with one CUDA launch per segment
+   (the segment count of each plan is printed); 20 repeated calls on the
+   1M tables give one result bit for bit.
 3. Main path: ``build_plan`` + ``plan.solve`` on thermal2 at n = 1,048,576
    (laplace_2d(1024, 1024) with a log-normal coefficient), HBMC, block 16,
    w 8.  CONVERGED in 48 +- 2 iterations, true relres < 1e-6 on the host,
-   one trisolve kernel launch per apply (iterations + 1) and one SpMV kernel
-   launch per iteration.  A small solve on the card is held against the same
-   solve on the CPU (plain path).
+   one trisolve kernel launch per apply (iterations + 1, 64 CUDA launches
+   each) and one SpMV kernel launch per iteration.  Every phase from here
+   to 3d checks the CUDA launches each wrapper reports (one per step of B1
+   / B5, one per segment of B3 / B6, one per call of B2 / B4) as well as
+   the wrapper calls.  The main plans' barrier-free segments, recomputed
+   and timed on the host: [0, 16, 48] for the fused table, [0, 16] for each
+   sweep.  A small solve on the card is held against the same solve on the
+   CPU (plain path).
 3b. Batched path: ``plan.solve_batched`` on the same plan with B = 8
    columns from ``default_rng(11)``: every column CONVERGED with true relres
    < 1e-6 and the iteration count of ``plan.solve`` on that column; launches
-   B3 = n_steps + 1, B4 = n_steps, none of the single-RHS kernels.
+   B3 = n_steps + 1, B4 = n_steps, none of the single-RHS kernels; CUDA
+   launches of B3 = 3 per apply (one per segment).
 3c. Serving: a ``SolverService(slab_width=8, quantum=16)`` on a wall clock
    over the same matrix, 24 seeded requests, one with a NaN RHS and one
    with a zero RHS: NaN -> BREAKDOWN, zero -> CONVERGED at 0 iterations,
    the rest CONVERGED at their single-RHS counts; the NaN request's slab
    neighbours and others bitwise equal to ``plan.solve_slab`` on the
-   service's cached plan.
+   service's cached plan; 3 CUDA launches per B3 apply.
 3d. Index layout: ``build_plan(..., layout="index")`` on the same matrix:
    ``plan.solve`` CONVERGED in 48 +- 2 iterations, true relres < 1e-6, two
    single-sweep launches per apply (2 x (iterations + 1)) and one SpMV
    launch per iteration; ``plan.solve_batched`` on the 8 columns, each at
-   its index-plan ``plan.solve`` count; one preconditioner apply bitwise
+   its index-plan ``plan.solve`` count, with 2 CUDA launches per B6 sweep;
+   one preconditioner apply bitwise
    equal, on every live entry, to the round-major plan's fused apply of the
    same vector; a small index solve on the card against the CPU.
 3e. Smoother: GS (omega 1) and SOR (omega 1.5) on the index plan's
@@ -48,14 +60,18 @@ its last line:
    plain versions, and the cuSPARSE CSR SpMV (``torch.mv`` on a CSR tensor,
    timed as a yardstick only; the port never calls it); the same at B = 8
    for the batched kernels (cuSPARSE SpMM, ``torch.sparse.mm``, as B4's
-   yardstick), ms per batched iteration, and the service's solves per
-   second; per single sweep B5, and B6 at B = 8 (cuSPARSE SpSV / SpSM,
-   ``torch.triangular_solve`` on a CSR factor, as their yardstick where the
-   installed torch takes one), the index layout's ms per iteration and per
-   batched column, and ms per smoother sweep.
+   yardstick; B3 in turns with its tables' segments and one launch per
+   step, the per-round launch pattern), ms per batched iteration, and the
+   service's solves per second;
+   per single sweep B5, and B6 at B = 8 (in turns as B3; cuSPARSE SpSV /
+   SpSM, ``torch.triangular_solve`` on a CSR factor, as their yardstick
+   where the installed torch takes one), the index layout's ms per
+   iteration and per batched column, and ms per smoother sweep.
 
-Its last lines: one JSON object with a row per kernel, the card's name and
-power limit from ``nvidia-smi``, then ``{"ok": true, "device": {...}}``.
+Its last lines: one JSON object with a row per kernel (``launches`` are
+wrapper calls on the main path, ``cuda_launches`` the CUDA launches they
+issued), the card's name and power limit from ``nvidia-smi``, then
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -151,6 +167,14 @@ def time_ms(fn, reps: int, device) -> float:
     end.record()
     torch.cuda.synchronize(device)
     return start.elapsed_time(end) / reps
+
+
+def cuda_launches_per_call(fn) -> int:
+    """CUDA launches of the port's kernels in one call of ``fn``."""
+    from repro_torch import kernels
+    before = kernels.cuda_launch_counts()
+    fn()
+    return sum(v - before[k] for k, v in kernels.cuda_launch_counts().items())
 
 
 def loop_ms(solve, rhs, reps: int) -> list[float]:
@@ -256,7 +280,9 @@ def check_batched_kernels(plan, label: str, seed: int,
                          device=dev).to(dt)
         x = torch.tensor(rng.normal(size=(plan._spmv_n, nb)),
                          device=dev).to(dt)
-        z = hbmc_trisolve_fused_batched(t.cols, t.vals, t.dinv, q)
+        z = check_segmented(hbmc_trisolve_fused_batched,
+                            hbmc_trisolve_fused_batched_ref, t, q,
+                            f"B3 on {label}, B={nb}")
         y = sell_spmv_batched(sv, sc, x)
         errs = {"hbmc_trisolve_fused_batched": rel_err(
                     z, hbmc_trisolve_fused_batched_ref(t.cols, t.vals,
@@ -279,11 +305,62 @@ def check_batched_kernels(plan, label: str, seed: int,
                 raise AssertionError(f"batched column {j} of B={nb} is not "
                                      f"bitwise the single-RHS kernel's on "
                                      f"{label}")
-    log(f"  {label:<28} batched B={list(sizes)}: trisolve rel err "
-        f"{worst['hbmc_trisolve_fused_batched']:.3e}  spmv rel err "
+    log(f"  {label:<28} batched B={list(sizes)}: B3 in "
+        f"{t.segments.size} segments of {2 * t.n_steps} steps, bitwise the "
+        f"plain version and the per-step cut; spmv rel err "
         f"{worst['sell_spmv_batched']:.3e}; every column bitwise equal to "
         f"the single-RHS kernels")
     return worst
+
+
+def check_segmented(fn, ref, t, q, label: str):
+    """A batched trisolve kernel (B3 ``fn`` on fused tables, or B6 on a
+    sweep table ``t``) with the tables' segments: bitwise its plain version
+    ``ref``, bitwise the same kernel cut into one launch per step
+    (``np.arange(G)``), and one CUDA launch per segment.  Returns its
+    result."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    before = kernels.cuda_launch_counts()
+    z = fn(t.cols, t.vals, t.dinv, q, segments=t.segments)
+    launched = {k: v - before[k] for k, v in
+                kernels.cuda_launch_counts().items()}
+    z_step = fn(t.cols, t.vals, t.dinv, q,
+                segments=np.arange(t.cols.shape[0]))
+    if q.device.type == "cuda":
+        torch.cuda.synchronize(q.device)
+        if sum(launched.values()) != t.segments.size:
+            raise AssertionError(f"{label}: {launched} CUDA launches for "
+                                 f"{t.segments.size} segments")
+    if not torch.equal(z, ref(t.cols, t.vals, t.dinv, q)):
+        raise AssertionError(f"{label}: not bitwise its plain version")
+    if not torch.equal(z, z_step):
+        raise AssertionError(f"{label}: segments differ from one launch "
+                             f"per step")
+    return z
+
+
+def check_repeats(fn, t, fused: bool, nb: int, seed: int, label: str,
+                  reps: int = 20) -> None:
+    """``reps`` calls of a batched trisolve kernel (B3 on fused tables, B6
+    on a sweep table) on one input give one result bit for bit: a race
+    between lanes would show as a changed bit."""
+    import numpy as np
+    import torch
+    n_slices = t.cols.shape[0] // (2 if fused else 1)
+    q = torch.tensor(np.random.default_rng(seed).normal(
+        size=(n_slices, t.cols.shape[1], nb)),
+        device=t.cols.device).to(t.vals.dtype)
+    z0 = fn(t.cols, t.vals, t.dinv, q, segments=t.segments)
+    for i in range(reps - 1):
+        if not torch.equal(fn(t.cols, t.vals, t.dinv, q, segments=t.segments),
+                           z0):
+            raise AssertionError(f"{label}: call {i + 2} of {reps} differs "
+                                 f"from the first")
+    log(f"  {label}: {reps} calls in {t.segments.size} segments, bitwise "
+        f"identical")
 
 
 def profile_solve(plan, b, b_batched, tag: str = "") -> None:
@@ -325,6 +402,44 @@ def profile_solve(plan, b, b_batched, tag: str = "") -> None:
             log(f"  {ms:9.3f}  {name[:90]}")
 
 
+def segment_phase(plan, plan_idx, grid: int) -> None:
+    """The barrier-free segments of the main plans' tables, recomputed on
+    the host and timed: equal to the ones the tables carry, and at the 1M
+    plan one per color boundary -- 3 for the fused apply, 2 per sweep."""
+    import numpy as np
+
+    from repro_torch.kernels.segments import barrier_segments
+    kp = plan_idx._precond.kernel
+    got = {}
+    for label, tab, fused in (("fused", plan._precond.tables, True),
+                              ("index fwd", kp.fwd, False),
+                              ("index bwd", kp.bwd, False)):
+        cols = tab.cols.cpu().numpy()
+        t0 = time.perf_counter()
+        seg = barrier_segments(cols, fused)
+        sec = time.perf_counter() - t0
+        log(f"barrier segments, {label} table {tuple(cols.shape)}: "
+            f"{seg.tolist()} in {sec:.3f} s (host, numpy)")
+        if not np.array_equal(seg, tab.segments):
+            raise AssertionError(f"{label} tables carry {tab.segments}, "
+                                 f"recomputed {seg}")
+        got[label] = seg.tolist()
+    want = {"fused": [0, 16, 48], "index fwd": [0, 16],
+            "index bwd": [0, 16]}
+    if grid == MAIN_GRID and got != want:
+        raise AssertionError(f"segments {got}, expected {want} at the 1M "
+                             f"plan")
+
+
+def cuda_launches_want(on_card: bool, **counts) -> dict:
+    """The kernels' CUDA launches of a run that launched only ``counts``
+    (none off the card)."""
+    want = dict(NO_LAUNCHES)
+    if on_card:
+        want.update(counts)
+    return want
+
+
 def solve_batched_phase(plan, a, on_card: bool):
     """Phase 3b: ``plan.solve_batched`` on B = 8 seeded columns."""
     import numpy as np
@@ -335,6 +450,7 @@ def solve_batched_phase(plan, a, on_card: bool):
     kernels.reset_launch_counts()
     rep = plan.solve_batched(b8)
     counts = kernels.launch_counts()
+    cuda_counts = kernels.cuda_launch_counts()
     res = rep.result
     true_relres = (np.linalg.norm(b8 - a @ rep.x, axis=0)
                    / np.linalg.norm(b8, axis=0))
@@ -358,7 +474,16 @@ def solve_batched_phase(plan, a, on_card: bool):
                     sell_spmv_batched=res.n_steps)
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
-    return rep, b8, counts
+    n_seg = plan._precond.tables.segments.size
+    want_cuda = cuda_launches_want(
+        on_card, hbmc_trisolve_fused_batched=n_seg * (res.n_steps + 1),
+        sell_spmv_batched=res.n_steps)
+    log(f"solve_batched: CUDA launches {cuda_counts} (B3 {n_seg} per "
+        f"apply)")
+    if cuda_counts != want_cuda:
+        raise AssertionError(f"CUDA launches {cuda_counts}, expected "
+                             f"{want_cuda}")
+    return rep, b8, counts, cuda_counts
 
 
 def serve_phase(a, plan_kw: dict, on_card: bool):
@@ -382,6 +507,7 @@ def serve_phase(a, plan_kw: dict, on_card: bool):
     svc.drain()
     wall_s = time.perf_counter() - t0
     counts = kernels.launch_counts()
+    cuda_counts = kernels.cuda_launch_counts()
     done = [svc.completed[r] for r in rids]
     steps = sum(e["steps"] for e in svc.dispatch_log)
     # the plan is read only now, after the service has drained
@@ -401,6 +527,14 @@ def serve_phase(a, plan_kw: dict, on_card: bool):
                     sell_spmv_batched=steps)
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
+    n_seg = plan._precond.tables.segments.size
+    want_cuda = cuda_launches_want(
+        on_card, hbmc_trisolve_fused_batched=n_seg * (
+            len(svc.dispatch_log) + steps), sell_spmv_batched=steps)
+    log(f"service: CUDA launches {cuda_counts} (B3 {n_seg} per apply)")
+    if cuda_counts != want_cuda:
+        raise AssertionError(f"CUDA launches {cuda_counts}, expected "
+                             f"{want_cuda}")
     for i, c in enumerate(done):
         want_status = ("BREAKDOWN" if i == nan_at else "CONVERGED")
         if c.status != want_status:
@@ -463,7 +597,9 @@ def check_sweep_kernels(plan_idx, label: str, seed: int,
         for nb in sizes:
             qb = torch.tensor(rng.normal(size=shape + (nb,)),
                               device=dev).to(dt)
-            yb = hbmc_trisolve_batched(t.cols, t.vals, t.dinv, qb)
+            yb = check_segmented(hbmc_trisolve_batched,
+                                 hbmc_trisolve_batched_ref, t, qb,
+                                 f"B6 on {label} {sweep}, B={nb}")
             errs.append(("hbmc_trisolve_batched", nb, rel_err(
                 yb, hbmc_trisolve_batched_ref(t.cols, t.vals, t.dinv, qb))))
             for j in range(nb):
@@ -480,8 +616,9 @@ def check_sweep_kernels(plan_idx, label: str, seed: int,
     log(f"  {label:<28} sweeps S={kp.fwd.dinv.shape[0]:>3} "
         f"R={kp.fwd.dinv.shape[1]:>6} K={kp.fwd.vals.shape[-1]}/"
         f"{kp.bwd.vals.shape[-1]}: B5 rel err {worst['hbmc_trisolve']:.3e}, "
-        f"B6 B={list(sizes)} rel err "
-        f"{worst['hbmc_trisolve_batched']:.3e}; every B6 column bitwise B5")
+        f"B6 B={list(sizes)} in {kp.fwd.segments.size}/"
+        f"{kp.bwd.segments.size} segments, bitwise the plain version and "
+        f"the per-step cut; every B6 column bitwise B5")
     return worst
 
 
@@ -562,11 +699,13 @@ def index_phase(plan, a, plan_rm, plan_kw: dict, b, b8, iterations,
     kernels.reset_launch_counts()
     rep = plan.solve(b)
     counts = kernels.launch_counts()
+    cuda_counts = kernels.cuda_launch_counts()
     res = rep.result
     true_relres = float(np.linalg.norm(b - a @ rep.x) / np.linalg.norm(b))
     log(f"index solve: status {res.status}, iterations {res.iterations}, "
         f"relres {res.relres:.3e}, true relres {true_relres:.3e}, "
-        f"{rep.solve_seconds:.3f} s; launches {counts}")
+        f"{rep.solve_seconds:.3f} s; launches {counts}; CUDA launches "
+        f"{cuda_counts}")
     if res.status != "CONVERGED":
         raise AssertionError(f"index solve ended {res.status}")
     if iterations is not None and abs(res.iterations - iterations) > \
@@ -584,10 +723,19 @@ def index_phase(plan, a, plan_rm, plan_kw: dict, b, b8, iterations,
     if counts != want:
         raise AssertionError(f"index launch counts {counts}, expected "
                              f"{want}")
+    kp = plan._precond.kernel
+    steps = kp.fwd.cols.shape[0] + kp.bwd.cols.shape[0]   # B5, per apply
+    want_cuda = cuda_launches_want(
+        on_card, hbmc_trisolve=steps * (res.iterations + 1),
+        sell_spmv=res.iterations)
+    if cuda_counts != want_cuda:
+        raise AssertionError(f"index CUDA launches {cuda_counts}, expected "
+                             f"{want_cuda}")
 
     kernels.reset_launch_counts()
     rep_b = plan.solve_batched(b8)
     counts_b = kernels.launch_counts()
+    cuda_b = kernels.cuda_launch_counts()
     res_b = rep_b.result
     singles = [plan.solve(b8[:, j]).result.iterations
                for j in range(b8.shape[1])]
@@ -609,6 +757,15 @@ def index_phase(plan, a, plan_rm, plan_kw: dict, b, b8, iterations,
     if counts_b != want:
         raise AssertionError(f"index batched launch counts {counts_b}, "
                              f"expected {want}")
+    per_apply = kp.fwd.segments.size + kp.bwd.segments.size
+    want_cuda = cuda_launches_want(
+        on_card, hbmc_trisolve_batched=per_apply * (res_b.n_steps + 1),
+        sell_spmv_batched=res_b.n_steps)
+    log(f"index solve_batched: CUDA launches {cuda_b} (B6 "
+        f"{kp.fwd.segments.size} + {kp.bwd.segments.size} per apply)")
+    if cuda_b != want_cuda:
+        raise AssertionError(f"index CUDA launches {cuda_b}, expected "
+                             f"{want_cuda}")
 
     # one apply of each layout on the same seeded vector, in HBMC order
     live = ~plan._sysd.drop
@@ -644,7 +801,7 @@ def index_phase(plan, a, plan_rm, plan_kw: dict, b, b8, iterations,
             or abs(r_dev.result.iterations - r_cpu.result.iterations) > 1
             or small_err > 1e-6):
         raise AssertionError("small index solve disagrees with the CPU path")
-    return counts, counts_b
+    return counts, counts_b, cuda_counts, cuda_b
 
 
 def smoother_phase(plan_idx, b, device: str) -> float:
@@ -773,12 +930,19 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     check_kernels(plan_main, f"thermal2/n={a_main.shape[0]}", seed=30)
     check_batched_kernels(plan_main, f"thermal2/n={a_main.shape[0]}",
                           seed=31, sizes=(BATCH,))
+    check_repeats(hbmc_trisolve_fused_batched, plan_main._precond.tables,
+                  True, BATCH, 33,
+                  f"B3 thermal2/n={a_main.shape[0]} B={BATCH}")
     del plan_main
     t0 = time.perf_counter()
     plan_idx = build_plan(a_main, layout="index", **plan_kw)
     idx_setup_s = time.perf_counter() - t0
     check_sweep_kernels(plan_idx, f"thermal2/n={a_main.shape[0]} index",
                         seed=32, sizes=(BATCH,))
+    for sweep, tab in (("fwd", plan_idx._precond.kernel.fwd),
+                       ("bwd", plan_idx._precond.kernel.bwd)):
+        check_repeats(hbmc_trisolve_batched, tab, False, BATCH, 34,
+                      f"B6 thermal2/n={a_main.shape[0]} {sweep} B={BATCH}")
 
     # -- 3. main path ---------------------------------------------------------
     log("== 3. main path: build_plan + solve, thermal2 "
@@ -790,6 +954,7 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     setup_s = time.perf_counter() - t0
     rep = plan.solve(b)
     counts = kernels.launch_counts()
+    cuda_main = kernels.cuda_launch_counts()
     res = rep.result
     true_relres = float(np.linalg.norm(b - a_main @ rep.x)
                         / np.linalg.norm(b))
@@ -799,7 +964,8 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
         f"{tuple(plan._spmv_vals.shape)}")
     log(f"solve: status {res.status}, iterations {res.iterations}, relres "
         f"{res.relres:.3e}, true relres {true_relres:.3e}, "
-        f"{rep.solve_seconds:.3f} s; launches {counts}")
+        f"{rep.solve_seconds:.3f} s; launches {counts}; CUDA launches "
+        f"{cuda_main}")
     if res.status != "CONVERGED":
         raise AssertionError(f"main path ended {res.status}")
     if iterations is not None and abs(res.iterations - iterations) > \
@@ -815,6 +981,13 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
                     sell_spmv=res.iterations)
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
+    want_cuda = cuda_launches_want(
+        on_card, hbmc_trisolve_fused=2 * t.n_steps * (res.iterations + 1),
+        sell_spmv=res.iterations)
+    if cuda_main != want_cuda:
+        raise AssertionError(f"CUDA launches {cuda_main}, expected "
+                             f"{want_cuda}")
+    segment_phase(plan, plan_idx, grid)
     # the same small solve through the kernels and through the plain path
     a_small = thermal2_matrix(48)
     b_small = np.random.default_rng(8).normal(size=a_small.shape[0])
@@ -832,7 +1005,8 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
 
     # -- 3b. batched path ----------------------------------------------------
     log(f"== 3b. batched path: plan.solve_batched, B={BATCH}, same plan")
-    rep_b, b8, counts_b = solve_batched_phase(plan, a_main, on_card)
+    rep_b, b8, counts_b, cuda_b = solve_batched_phase(plan, a_main,
+                                                      on_card)
 
     # -- 3c. serving ----------------------------------------------------------
     log(f"== 3c. serving: SolverService(slab_width={BATCH}, "
@@ -845,8 +1019,8 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
         f"solve_batched B={BATCH}, same matrix; plan setup "
         f"{idx_setup_s:.3f} s, sweep tables fwd {tuple(kp.fwd.cols.shape)}, "
         f"bwd {tuple(kp.bwd.cols.shape)}")
-    counts_idx, counts_idx_b = index_phase(plan_idx, a_main, plan, plan_kw,
-                                           b, b8, iterations, on_card)
+    counts_idx, counts_idx_b, cuda_idx, cuda_idx_b = index_phase(
+        plan_idx, a_main, plan, plan_kw, b, b8, iterations, on_card)
 
     # -- 3e. smoother ---------------------------------------------------------
     log(f"== 3e. smoother: GS and SOR(1.5), {SMOOTHER_SWEEPS} sweeps each on "
@@ -872,7 +1046,8 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     y_k = sell_spmv(sv, sc, x)
     err_spmv = max_abs(y_k, sell_spmv_ref(sv, sc, x))
     err_tri_b = max_abs(
-        hbmc_trisolve_fused_batched(t.cols, t.vals, t.dinv, qb),
+        hbmc_trisolve_fused_batched(t.cols, t.vals, t.dinv, qb,
+                                    segments=t.segments),
         hbmc_trisolve_fused_batched_ref(t.cols, t.vals, t.dinv, qb))
     y_kb = sell_spmv_batched(sv, sc, xb)
     err_spmv_b = max_abs(y_kb, sell_spmv_batched_ref(sv, sc, xb))
@@ -901,6 +1076,8 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     reps = 50 if on_card else 2
     tri_ms = time_ms(lambda: hbmc_trisolve_fused(t.cols, t.vals, t.dinv, q),
                      reps, dev)
+    tri_launches = cuda_launches_per_call(
+        lambda: hbmc_trisolve_fused(t.cols, t.vals, t.dinv, q))
     tri_plain_ms = time_ms(
         lambda: hbmc_trisolve_fused_ref(t.cols, t.vals, t.dinv, q),
         max(reps // 5, 1), dev)
@@ -909,9 +1086,16 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     spmv_lib_ms = time_ms(lambda: torch.mv(a_lib, x), 4 * reps, dev)
     solve_reps = 5 if on_card else 1
     iter_ms = loop_ms(plan.solve, b, solve_reps)
-    tri_b_ms = time_ms(
-        lambda: hbmc_trisolve_fused_batched(t.cols, t.vals, t.dinv, qb),
-        reps, dev)
+
+    def b3(segs):
+        return lambda: hbmc_trisolve_fused_batched(
+            t.cols, t.vals, t.dinv, qb, segments=segs)
+
+    # in turns: the tables' segments, then one launch per step
+    b3_cuts = (t.segments, np.arange(2 * t.n_steps))
+    tri_b_turns = [time_ms(b3(b3_cuts[i % 2]), reps, dev) for i in range(4)]
+    tri_b_ms = (tri_b_turns[0] + tri_b_turns[2]) / 2
+    tri_b_launches = [cuda_launches_per_call(b3(c)) for c in b3_cuts]
     tri_b_plain_ms = time_ms(
         lambda: hbmc_trisolve_fused_batched_ref(t.cols, t.vals, t.dinv, qb),
         max(reps // 5, 1), dev)
@@ -943,16 +1127,22 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     spmv_b_bnd, spmv_b_by = spmv_bound(xb)
     log(f"trisolve apply: kernel {tri_ms:.4f}  plain {tri_plain_ms:.4f}  "
         f"bound {tri_bnd:.4f} ({tri_by}, "
-        f"{trisolve_bytes(t, q) / 1e6:.1f} MB; {2 * t.n_steps} launches)")
+        f"{trisolve_bytes(t, q) / 1e6:.1f} MB; {tri_launches} CUDA launches "
+        f"per call)")
     log(f"SELL SpMV:      kernel {spmv_ms:.4f}  plain {spmv_plain_ms:.4f}  "
         f"bound {spmv_bnd:.4f} ({spmv_by}, "
         f"{spmv_bytes(sv, sc, x) / 1e6:.1f} MB)  torch.mv CSR "
         f"{spmv_lib_ms:.4f}")
     log(f"PCG iteration:  {spread(iter_ms)} ms; host setup "
         f"{setup_s * 1e3:.1f} ms")
-    log(f"batched trisolve apply, B={BATCH}: kernel {tri_b_ms:.4f}  plain "
-        f"{tri_b_plain_ms:.4f}  bound {tri_b_bnd:.4f} ({tri_b_by}, "
-        f"{trisolve_bytes(t, qb) / 1e6:.1f} MB; {2 * t.n_steps} launches)")
+    log(f"batched trisolve apply B3, B={BATCH}: kernel {tri_b_ms:.4f}  "
+        f"plain {tri_b_plain_ms:.4f}  bound {tri_b_bnd:.4f} ({tri_b_by}, "
+        f"{trisolve_bytes(t, qb) / 1e6:.1f} MB; {tri_b_launches[0]} CUDA "
+        f"launches per call)")
+    log(f"  B3 in turns, segments / per step ({tri_b_launches[1]} launches)"
+        f": {' / '.join(f'{ms:.4f}' for ms in tri_b_turns)}; segments take "
+        f"{2 * tri_b_ms / (tri_b_turns[1] + tri_b_turns[3]):.3f} of the "
+        f"per-step time")
     log(f"batched SELL SpMV, B={BATCH}: kernel {spmv_b_ms:.4f}  plain "
         f"{spmv_b_plain_ms:.4f}  bound {spmv_b_bnd:.4f} ({spmv_b_by}, "
         f"{spmv_bytes(sv, sc, xb) / 1e6:.1f} MB)  torch.sparse.mm CSR "
@@ -971,18 +1161,27 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     qsb = torch.tensor(rng.normal(size=tuple(tf.dinv.shape) + (BATCH,)),
                        device=dev)
     y_sw = hbmc_trisolve(tf.cols, tf.vals, tf.dinv, qs)
-    y_sw_b = hbmc_trisolve_batched(tf.cols, tf.vals, tf.dinv, qsb)
+    y_sw_b = hbmc_trisolve_batched(tf.cols, tf.vals, tf.dinv, qsb,
+                                   segments=tf.segments)
     err_sw = max_abs(y_sw, hbmc_trisolve_ref(tf.cols, tf.vals, tf.dinv, qs))
     err_sw_b = max_abs(y_sw_b, hbmc_trisolve_batched_ref(tf.cols, tf.vals,
                                                          tf.dinv, qsb))
     sw_ms = time_ms(lambda: hbmc_trisolve(tf.cols, tf.vals, tf.dinv, qs),
                     reps, dev)
+    sw_launches = cuda_launches_per_call(
+        lambda: hbmc_trisolve(tf.cols, tf.vals, tf.dinv, qs))
     sw_plain_ms = time_ms(
         lambda: hbmc_trisolve_ref(tf.cols, tf.vals, tf.dinv, qs),
         max(reps // 5, 1), dev)
-    sw_b_ms = time_ms(
-        lambda: hbmc_trisolve_batched(tf.cols, tf.vals, tf.dinv, qsb), reps,
-        dev)
+
+    def b6(segs):
+        return lambda: hbmc_trisolve_batched(
+            tf.cols, tf.vals, tf.dinv, qsb, segments=segs)
+
+    b6_cuts = (tf.segments, np.arange(tf.cols.shape[0]))
+    sw_b_turns = [time_ms(b6(b6_cuts[i % 2]), reps, dev) for i in range(4)]
+    sw_b_ms = (sw_b_turns[0] + sw_b_turns[2]) / 2
+    sw_b_launches = [cuda_launches_per_call(b6(c)) for c in b6_cuts]
     sw_b_plain_ms = time_ms(
         lambda: hbmc_trisolve_batched_ref(tf.cols, tf.vals, tf.dinv, qsb),
         max(reps // 5, 1), dev)
@@ -1005,12 +1204,17 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     sw_lanes = tf.dinv.shape
     log(f"index sweep (B5, one of two per apply): kernel {sw_ms:.4f}  "
         f"plain {sw_plain_ms:.4f}  bound {sw_bnd:.4f} ({sw_by}, "
-        f"{trisolve_bytes(tf, qs) / 1e6:.1f} MB; {sw_lanes[0]} launches)  "
+        f"{trisolve_bytes(tf, qs) / 1e6:.1f} MB; {sw_launches} CUDA "
+        f"launches per call)  "
         f"library {fmt_ms(sw_lib_ms)}")
     log(f"index sweep B6, B={BATCH}: kernel {sw_b_ms:.4f}  plain "
         f"{sw_b_plain_ms:.4f}  bound {sw_b_bnd:.4f} ({sw_b_by}, "
-        f"{trisolve_bytes(tf, qsb) / 1e6:.1f} MB; {sw_lanes[0]} launches)  "
-        f"library {fmt_ms(sw_b_lib_ms)}")
+        f"{trisolve_bytes(tf, qsb) / 1e6:.1f} MB; {sw_b_launches[0]} CUDA "
+        f"launches per call)  library {fmt_ms(sw_b_lib_ms)}")
+    log(f"  B6 in turns, segments / per step ({sw_b_launches[1]} launches)"
+        f": {' / '.join(f'{ms:.4f}' for ms in sw_b_turns)}; segments take "
+        f"{2 * sw_b_ms / (sw_b_turns[1] + sw_b_turns[3]):.3f} of the "
+        f"per-step time")
     log(f"index PCG iteration: {spread(iter_idx_ms)} ms; round-major in "
         f"turn: {spread(iter_rm_ms)} ms")
     med_idx_b = iter_idx_b_ms[len(iter_idx_b_ms) // 2]
@@ -1026,27 +1230,36 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     profile_solve(plan, b, b8)
     profile_solve(plan_idx, b, b8, tag="index ")
 
-    def row(name, launches, err, ms, plain_ms, bnd, by, lib_ms):
+    def row(name, launches, cuda_launches, err, ms, plain_ms, bnd, by,
+            lib_ms):
+        """``launches`` are wrapper calls on the main path, ``cuda_launches``
+        the CUDA launches they issued."""
         return {"name": name, **KERNELS[name], "launches": launches,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms}
+                "cuda_launches": cuda_launches, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+                "bound_by": by, "library_ms": lib_ms}
 
+    # CUDA launches: B1, B2 from the main solve, B3, B4 from the batched
+    # solve, B5 from the index solve and B6 from the index batched solve
     return [
-        row("hbmc_trisolve_fused", counts["hbmc_trisolve_fused"], err_tri,
-            tri_ms, tri_plain_ms, tri_bnd, tri_by, None),
-        row("sell_spmv", counts["sell_spmv"], err_spmv, spmv_ms,
-            spmv_plain_ms, spmv_bnd, spmv_by, spmv_lib_ms),
+        row("hbmc_trisolve_fused", counts["hbmc_trisolve_fused"],
+            cuda_main["hbmc_trisolve_fused"], err_tri, tri_ms, tri_plain_ms,
+            tri_bnd, tri_by, None),
+        row("sell_spmv", counts["sell_spmv"], cuda_main["sell_spmv"],
+            err_spmv, spmv_ms, spmv_plain_ms, spmv_bnd, spmv_by, spmv_lib_ms),
         row("hbmc_trisolve_fused_batched",
-            counts_b["hbmc_trisolve_fused_batched"], err_tri_b, tri_b_ms,
+            counts_b["hbmc_trisolve_fused_batched"],
+            cuda_b["hbmc_trisolve_fused_batched"], err_tri_b, tri_b_ms,
             tri_b_plain_ms, tri_b_bnd, tri_b_by, None),
-        row("sell_spmv_batched", counts_b["sell_spmv_batched"], err_spmv_b,
-            spmv_b_ms, spmv_b_plain_ms, spmv_b_bnd, spmv_b_by,
-            spmv_b_lib_ms),
-        row("hbmc_trisolve", counts_idx["hbmc_trisolve"], err_sw, sw_ms,
-            sw_plain_ms, sw_bnd, sw_by, sw_lib_ms),
+        row("sell_spmv_batched", counts_b["sell_spmv_batched"],
+            cuda_b["sell_spmv_batched"], err_spmv_b, spmv_b_ms,
+            spmv_b_plain_ms, spmv_b_bnd, spmv_b_by, spmv_b_lib_ms),
+        row("hbmc_trisolve", counts_idx["hbmc_trisolve"],
+            cuda_idx["hbmc_trisolve"], err_sw, sw_ms, sw_plain_ms, sw_bnd,
+            sw_by, sw_lib_ms),
         row("hbmc_trisolve_batched", counts_idx_b["hbmc_trisolve_batched"],
-            err_sw_b, sw_b_ms, sw_b_plain_ms, sw_b_bnd, sw_b_by,
-            sw_b_lib_ms),
+            cuda_idx_b["hbmc_trisolve_batched"], err_sw_b, sw_b_ms,
+            sw_b_plain_ms, sw_b_bnd, sw_b_by, sw_b_lib_ms),
     ]
 
 

@@ -30,6 +30,7 @@ them.  The mesh-sharded apply belongs to a later slice of the port.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
@@ -41,6 +42,7 @@ from ..kernels.config import DEFAULT_DEVICE, resolve_device
 from ..kernels.hbmc_trisolve import (hbmc_trisolve_fused,
                                      hbmc_trisolve_fused_batched)
 from ..kernels.ref import _sum_over_k
+from ..kernels.segments import barrier_segments
 from .hbmc import HBMCOrdering
 from .sell import (FusedRoundMajorTables, RoundMajorLayout, StepTables,
                    fuse_round_major, pack_factor, pack_factor_hbmc)
@@ -134,10 +136,20 @@ class DeviceFusedTables:
 
     Row ``g`` of each tensor drives fused step ``g``: forward rounds for
     ``g < S``, backward rounds (backward execution order) for ``g >= S``.
+    ``segments`` are the start steps of the table's barrier-free segments,
+    for the batched kernel, which launches once per segment.
     """
     cols: torch.Tensor   # (2S, R, K) int32 -- fwd-round-major gather positions
     vals: torch.Tensor   # (2S, R, K)
     dinv: torch.Tensor   # (2S, R)
+
+    @functools.cached_property
+    def segments(self) -> np.ndarray:
+        """(n_segments,) int32 on the host, ``barrier_segments`` of
+        ``cols``: computed at first use (the first batched apply) and kept,
+        so a plan that never solves batched never pays for it (about 0.2 s
+        at the 1M plan's tables, ``chip_smoke.py`` phase 3)."""
+        return barrier_segments(self.cols.cpu().numpy(), fused=True)
 
     @property
     def n_steps(self) -> int:
@@ -172,7 +184,7 @@ def fused_solve_batched(tables: DeviceFusedTables,
                         q: torch.Tensor) -> torch.Tensor:
     """Multi-RHS fused apply.  q: (S, R, B) -> (S*R, B)."""
     return hbmc_trisolve_fused_batched(tables.cols, tables.vals, tables.dinv,
-                                       q)
+                                       q, segments=tables.segments)
 
 
 @dataclasses.dataclass(frozen=True)

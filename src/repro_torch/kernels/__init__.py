@@ -10,7 +10,10 @@ sell_spmv -- the SELL-w SpMV, single-RHS and batched (``csrc/sell_spmv.cu``;
 replaces the Pallas ``sell_spmv`` and ``sell_spmv_batched``).
 
 Each wrapper runs its CUDA kernel for a CUDA tensor and its plain version
-(``ref.py``) for a CPU tensor, and counts its kernel launches.
+(``ref.py``) for a CPU tensor, and counts its calls that launched
+(``launch_counts``) and the CUDA launches those calls issued
+(``cuda_launch_counts``).  The batched trisolve kernels launch once per
+barrier-free segment of their table (``segments.barrier_segments``).
 
 ``ops`` (imported on its own, since it reads ``repro_torch.core.sell``)
 carries the index layout's tables and its kernel preconditioner.
@@ -35,6 +38,18 @@ _COUNTED = {
     "hbmc_trisolve_batched": (_hbmc_trisolve_mod, "sweep_batched_launches"),
 }
 
+# wrapper name -> (module, counter of the CUDA launches its calls issued)
+_CUDA_COUNTED = {
+    "hbmc_trisolve_fused": (_hbmc_trisolve_mod, "cuda_launches"),
+    "sell_spmv": (_sell_spmv_mod, "cuda_launches"),
+    "hbmc_trisolve_fused_batched": (_hbmc_trisolve_mod,
+                                    "batched_cuda_launches"),
+    "sell_spmv_batched": (_sell_spmv_mod, "batched_cuda_launches"),
+    "hbmc_trisolve": (_hbmc_trisolve_mod, "sweep_cuda_launches"),
+    "hbmc_trisolve_batched": (_hbmc_trisolve_mod,
+                              "sweep_batched_cuda_launches"),
+}
+
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
@@ -42,6 +57,15 @@ def launch_counts() -> dict[str, int]:
             _COUNTED.items()}
 
 
+def cuda_launch_counts() -> dict[str, int]:
+    """CUDA launches per wrapper since the last reset, as the C entry points
+    report them: one per step of B1 / B5, one per segment of B3 / B6, one
+    per call of B2 / B4."""
+    return {name: getattr(mod, attr) for name, (mod, attr) in
+            _CUDA_COUNTED.items()}
+
+
 def reset_launch_counts() -> None:
-    for mod, attr in _COUNTED.values():
+    """Zero the wrapper-call and the CUDA-launch counters."""
+    for mod, attr in (*_COUNTED.values(), *_CUDA_COUNTED.values()):
         setattr(mod, attr, 0)

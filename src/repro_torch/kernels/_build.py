@@ -30,22 +30,30 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_N = ctypes.POINTER(ctypes.c_int)   # out: the number of kernel launches
+# cols, vals, dinv, q, y, S, R, K, stream, launches
+_TRISOLVE = (_P, _P, _P, _P, _P, _I, _I, _I, _P, _N)
+# cols, vals, dinv, q, y, S, R, K, B, segment starts (host int32), their
+# count, stream, launches
+_BATCHED_TRISOLVE = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _N)
+# vals, cols, x, y, slices, K, w, len(x), stream, launches
+_SPMV = (_P, _P, _P, _P, _I64, _I, _I, _I64, _P, _N)
+# vals, cols, x, y, slices, K, w, len(x), B, stream, launches
+_BATCHED_SPMV = (_P, _P, _P, _P, _I64, _I, _I, _I64, _I, _P, _N)
 # C signature of every entry point: (argtypes), each returns cudaError_t
 SIGNATURES = {
-    "hbmc_trisolve_fused_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "hbmc_trisolve_fused_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "sell_spmv_f64": (_P, _P, _P, _P, _I64, _I, _I, _I64, _P),
-    "sell_spmv_f32": (_P, _P, _P, _P, _I64, _I, _I, _I64, _P),
-    "hbmc_trisolve_fused_batched_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                        _P),
-    "hbmc_trisolve_fused_batched_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                        _P),
-    "sell_spmv_batched_f64": (_P, _P, _P, _P, _I64, _I, _I, _I64, _I, _P),
-    "sell_spmv_batched_f32": (_P, _P, _P, _P, _I64, _I, _I, _I64, _I, _P),
-    "hbmc_trisolve_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "hbmc_trisolve_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "hbmc_trisolve_batched_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "hbmc_trisolve_batched_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "hbmc_trisolve_fused_f64": _TRISOLVE,
+    "hbmc_trisolve_fused_f32": _TRISOLVE,
+    "sell_spmv_f64": _SPMV,
+    "sell_spmv_f32": _SPMV,
+    "hbmc_trisolve_fused_batched_f64": _BATCHED_TRISOLVE,
+    "hbmc_trisolve_fused_batched_f32": _BATCHED_TRISOLVE,
+    "sell_spmv_batched_f64": _BATCHED_SPMV,
+    "sell_spmv_batched_f32": _BATCHED_SPMV,
+    "hbmc_trisolve_f64": _TRISOLVE,
+    "hbmc_trisolve_f32": _TRISOLVE,
+    "hbmc_trisolve_batched_f64": _BATCHED_TRISOLVE,
+    "hbmc_trisolve_batched_f32": _BATCHED_TRISOLVE,
 }
 
 
@@ -134,13 +142,17 @@ def load_library() -> KernelLibrary:
     return KernelLibrary(lib=lib, path=path, build_seconds=seconds, log=log)
 
 
-def call(name: str, *args) -> None:
-    """Call entry point ``name`` of the library; raise on a CUDA error.
+def call(name: str, *args) -> int:
+    """Call entry point ``name`` of the library with ``args`` (all but its
+    last, the launch count); return the number of kernels it launched, or
+    raise on a CUDA error.
 
     The C function returns ``cudaGetLastError()`` after its launches, so a
     launch the device refused surfaces here, not at a later synchronize.
     """
-    err = getattr(load_library().lib, name)(*args)
+    launched = ctypes.c_int(0)
+    err = getattr(load_library().lib, name)(*args, ctypes.byref(launched))
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError_t {err}")
+    return launched.value

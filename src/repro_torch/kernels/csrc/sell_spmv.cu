@@ -78,61 +78,72 @@ __global__ void sell_spmv_batched_kernel(const T* __restrict__ vals,
 template <typename T>
 int launch_spmv_batched(const T* vals, const int32_t* cols, const T* x,
                         T* y, int64_t n_slices, int k, int w, int64_t nx,
-                        int nb, cudaStream_t st) {
+                        int nb, cudaStream_t st, int* launched) {
   const int64_t n = n_slices * w * nb;
   if (n == 0) return 0;
   const int threads = 256;
   const int64_t blocks = (n + threads - 1) / threads;
   sell_spmv_batched_kernel<T><<<(unsigned)blocks, threads, 0, st>>>(
       vals, cols, x, y, n_slices * w, k, w, nx, nb);
-  return (int)cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++*launched;
+  return (int)err;
 }
 
 template <typename T>
 int launch_spmv(const T* vals, const int32_t* cols, const T* x, T* y,
                 int64_t n_slices, int k, int w, int64_t nx,
-                cudaStream_t st) {
+                cudaStream_t st, int* launched) {
   const int64_t n_rows = n_slices * w;
   if (n_rows == 0) return 0;
   const int threads = 256;
   const int64_t blocks = (n_rows + threads - 1) / threads;
   sell_spmv_kernel<T><<<(unsigned)blocks, threads, 0, st>>>(
       vals, cols, x, y, n_rows, k, w, nx);
-  return (int)cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++*launched;
+  return (int)err;
 }
 
 }  // namespace
 
+// Every entry point: *launched is incremented once per kernel launch issued;
+// the return value is the CUDA error of the launch.
+
 extern "C" int sell_spmv_f64(const void* vals, const void* cols,
                              const void* x, void* y, int64_t n_slices, int k,
-                             int w, int64_t nx, void* stream) {
+                             int w, int64_t nx, void* stream,
+                             int* launched) {
   return launch_spmv<double>((const double*)vals, (const int32_t*)cols,
                              (const double*)x, (double*)y, n_slices, k, w,
-                             nx, (cudaStream_t)stream);
+                             nx, (cudaStream_t)stream, launched);
 }
 
 extern "C" int sell_spmv_f32(const void* vals, const void* cols,
                              const void* x, void* y, int64_t n_slices, int k,
-                             int w, int64_t nx, void* stream) {
+                             int w, int64_t nx, void* stream,
+                             int* launched) {
   return launch_spmv<float>((const float*)vals, (const int32_t*)cols,
                             (const float*)x, (float*)y, n_slices, k, w, nx,
-                            (cudaStream_t)stream);
+                            (cudaStream_t)stream, launched);
 }
 
 extern "C" int sell_spmv_batched_f64(const void* vals, const void* cols,
                                      const void* x, void* y,
                                      int64_t n_slices, int k, int w,
-                                     int64_t nx, int nb, void* stream) {
+                                     int64_t nx, int nb, void* stream,
+                                     int* launched) {
   return launch_spmv_batched<double>(
       (const double*)vals, (const int32_t*)cols, (const double*)x,
-      (double*)y, n_slices, k, w, nx, nb, (cudaStream_t)stream);
+      (double*)y, n_slices, k, w, nx, nb, (cudaStream_t)stream, launched);
 }
 
 extern "C" int sell_spmv_batched_f32(const void* vals, const void* cols,
                                      const void* x, void* y,
                                      int64_t n_slices, int k, int w,
-                                     int64_t nx, int nb, void* stream) {
+                                     int64_t nx, int nb, void* stream,
+                                     int* launched) {
   return launch_spmv_batched<float>(
       (const float*)vals, (const int32_t*)cols, (const float*)x, (float*)y,
-      n_slices, k, w, nx, nb, (cudaStream_t)stream);
+      n_slices, k, w, nx, nb, (cudaStream_t)stream, launched);
 }

@@ -10,27 +10,39 @@ Ports of the four Pallas kernels of ``repro.kernels.hbmc_trisolve``:
   forward or backward solve.
 
 For a CUDA tensor each wrapper launches its hand-written kernel in
-``csrc/hbmc_trisolve.cu`` (one launch per step, the kernel boundary being
-the round barrier; see the source for the design and bound).  For a CPU
-tensor it runs the plain PyTorch version in ``ref``.
+``csrc/hbmc_trisolve.cu`` (see the source for the design and bound): the
+single-RHS kernels one launch per step, the kernel boundary being the round
+barrier; the batched kernels one launch per barrier-free segment of the
+table (``segments.barrier_segments``).  For a CPU tensor it runs the plain
+PyTorch version in ``ref``, whose result is the step-major one.
 
 ``launches`` / ``batched_launches`` count the wrapper calls that launched
 the fused single-RHS / batched CUDA kernel, ``sweep_launches`` /
-``sweep_batched_launches`` those of the single sweep.
+``sweep_batched_launches`` those of the single sweep.  The ``*_cuda_``
+counters beside them (``cuda_launches``, ``batched_cuda_launches``,
+``sweep_cuda_launches``, ``sweep_batched_cuda_launches``) count the CUDA
+launches those calls issued, as the C entry points report them: one per
+step for the single-RHS kernels, one per segment for the batched ones.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _build
 from .config import runs_plain
 from .ref import (hbmc_trisolve_batched_ref, hbmc_trisolve_fused_batched_ref,
                   hbmc_trisolve_fused_ref, hbmc_trisolve_ref)
+from .segments import barrier_segments
 
 launches = 0
 batched_launches = 0
 sweep_launches = 0
 sweep_batched_launches = 0
+cuda_launches = 0
+batched_cuda_launches = 0
+sweep_cuda_launches = 0
+sweep_batched_cuda_launches = 0
 
 _FLOATS = (torch.float64, torch.float32)
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
@@ -57,19 +69,36 @@ def _check(cols, vals, dinv, q) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _run(entry: str, cols, vals, dinv, q) -> torch.Tensor:
-    """Check the operands and launch the steps of ``entry`` (2S fused, S
-    for one sweep) into a zeroed (S*R[, B]) buffer; returns it."""
+def _run(entry: str, cols, vals, dinv, q, *extra) -> tuple[torch.Tensor,
+                                                            int]:
+    """Check the operands and launch ``entry`` (``extra`` are its arguments
+    after the shapes) into a new (S*R[, B]) buffer, which the kernels need
+    no zeros in; returns it and the number of CUDA launches."""
     _check(cols, vals, dinv, q)
     s_, r_, k_ = q.shape[0], q.shape[1], cols.shape[2]
-    y = torch.zeros((s_ * r_,) + tuple(q.shape[2:]), dtype=vals.dtype,
-                    device=q.device)
-    if y.numel():
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        _build.call(f"{entry}_{_SUFFIX[vals.dtype]}", cols.data_ptr(),
+    shape = (s_ * r_,) + tuple(q.shape[2:])
+    y = torch.empty(shape, dtype=vals.dtype, device=q.device)
+    if not y.numel():
+        return y, 0
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    n = _build.call(f"{entry}_{_SUFFIX[vals.dtype]}", cols.data_ptr(),
                     vals.data_ptr(), dinv.data_ptr(), q.data_ptr(),
-                    y.data_ptr(), s_, r_, k_, *q.shape[2:], stream)
-    return y
+                    y.data_ptr(), s_, r_, k_, *q.shape[2:], *extra, stream)
+    return y, n
+
+
+def _segments(segments, cols: torch.Tensor, fused: bool) -> np.ndarray:
+    """The segment starts to launch: ``segments`` checked, or computed from
+    ``cols`` when None."""
+    if segments is None:
+        return barrier_segments(cols.cpu().numpy(), fused)
+    seg = np.ascontiguousarray(segments, dtype=np.int32)
+    n_steps = cols.shape[0]
+    if (seg.ndim != 1 or seg.size == 0 or seg[0] != 0
+            or np.any(np.diff(seg) <= 0) or seg[-1] >= max(n_steps, 1)):
+        raise ValueError(f"segments must be ascending step starts from 0 "
+                         f"below {n_steps}, got {seg.tolist()}")
+    return seg
 
 
 def hbmc_trisolve_fused(cols: torch.Tensor, vals: torch.Tensor,
@@ -90,36 +119,50 @@ def hbmc_trisolve_fused(cols: torch.Tensor, vals: torch.Tensor,
     Returns:
       z: (S*R,) solution in round-major layout (holes stay 0).
     """
-    global launches
+    global launches, cuda_launches
     s2, r_, _ = cols.shape
     if q.shape != (s2 // 2, r_):
         raise ValueError(f"q shape {tuple(q.shape)} != rounds shape "
                          f"{(s2 // 2, r_)}")
     if runs_plain(q):
         return hbmc_trisolve_fused_ref(cols, vals, dinv, q)
-    y = _run("hbmc_trisolve_fused", cols, vals, dinv, q)
+    y, n = _run("hbmc_trisolve_fused", cols, vals, dinv, q)
     launches += 1
+    cuda_launches += n
     return y
 
 
 def hbmc_trisolve_fused_batched(cols: torch.Tensor, vals: torch.Tensor,
-                                dinv: torch.Tensor,
-                                q: torch.Tensor) -> torch.Tensor:
+                                dinv: torch.Tensor, q: torch.Tensor,
+                                segments=None) -> torch.Tensor:
     """Multi-RHS fused apply.  q: (S, R, B) -> z: (S*R, B).
 
     The B right-hand sides share every load of cols/vals/dinv; column j of
     the result is bitwise equal to ``hbmc_trisolve_fused`` on ``q[..., j]``
     (on the card and on the CPU alike).  Any B >= 1.
+
+    ``segments``: int32 start steps of the barrier-free segments of
+    ``cols`` (``segments.barrier_segments(cols, fused=True)``; the
+    plan's tables carry them).  On the card each segment is one launch;
+    any cut finer than the computed one (``np.arange(2S)``: one launch per
+    step) gives the same bits.  None computes them from ``cols`` on the
+    host: a device-to-host copy of ``cols`` and about 0.2 s at the 1M
+    plan's tables, per call, so the solve paths always pass them.  The
+    plain (CPU) version ignores ``segments``: its result is the step-major
+    one.
     """
-    global batched_launches
+    global batched_launches, batched_cuda_launches
     s2, r_, _ = cols.shape
     if q.dim() != 3 or q.shape[:2] != (s2 // 2, r_):
         raise ValueError(f"q shape {tuple(q.shape)} != {(s2 // 2, r_)} + "
                          "(B,)")
     if runs_plain(q):
         return hbmc_trisolve_fused_batched_ref(cols, vals, dinv, q)
-    y = _run("hbmc_trisolve_fused_batched", cols, vals, dinv, q)
+    seg = _segments(segments, cols, True)
+    y, n = _run("hbmc_trisolve_fused_batched", cols, vals, dinv, q,
+                seg.ctypes.data, int(seg.size))
     batched_launches += 1
+    batched_cuda_launches += n
     return y
 
 
@@ -138,32 +181,38 @@ def hbmc_trisolve(cols: torch.Tensor, vals: torch.Tensor, dinv: torch.Tensor,
     Returns:
       y: (S*R,) solution in round-major layout.
     """
-    global sweep_launches
+    global sweep_launches, sweep_cuda_launches
     if q.shape != cols.shape[:2]:
         raise ValueError(f"q shape {tuple(q.shape)} != rounds shape "
                          f"{tuple(cols.shape[:2])}")
     if runs_plain(q):
         return hbmc_trisolve_ref(cols, vals, dinv, q)
-    y = _run("hbmc_trisolve", cols, vals, dinv, q)
+    y, n = _run("hbmc_trisolve", cols, vals, dinv, q)
     sweep_launches += 1
+    sweep_cuda_launches += n
     return y
 
 
 def hbmc_trisolve_batched(cols: torch.Tensor, vals: torch.Tensor,
-                          dinv: torch.Tensor, q: torch.Tensor
-                          ) -> torch.Tensor:
+                          dinv: torch.Tensor, q: torch.Tensor,
+                          segments=None) -> torch.Tensor:
     """Multi-RHS sweep.  q: (S, R, B) -> y: (S*R, B).
 
     The B right-hand sides share every load of cols/vals/dinv; column j of
     the result is bitwise equal to ``hbmc_trisolve`` on ``q[..., j]`` (on
-    the card and on the CPU alike).  Any B >= 1.
+    the card and on the CPU alike).  Any B >= 1.  ``segments`` as for
+    ``hbmc_trisolve_fused_batched``, of the sweep table
+    (``barrier_segments(cols, fused=False)``).
     """
-    global sweep_batched_launches
+    global sweep_batched_launches, sweep_batched_cuda_launches
     if q.dim() != 3 or q.shape[:2] != cols.shape[:2]:
         raise ValueError(f"q shape {tuple(q.shape)} != "
                          f"{tuple(cols.shape[:2])} + (B,)")
     if runs_plain(q):
         return hbmc_trisolve_batched_ref(cols, vals, dinv, q)
-    y = _run("hbmc_trisolve_batched", cols, vals, dinv, q)
+    seg = _segments(segments, cols, False)
+    y, n = _run("hbmc_trisolve_batched", cols, vals, dinv, q,
+                seg.ctypes.data, int(seg.size))
     sweep_batched_launches += 1
+    sweep_batched_cuda_launches += n
     return y

@@ -5,8 +5,11 @@ converts one sweep's ``StepTables`` once at setup (``sell.to_round_major``)
 and moves it to a device; ``apply`` gathers an HBMC-ordered vector into
 round-major order, runs the sweep through ``hbmc_trisolve`` (one RHS) or
 ``hbmc_trisolve_batched`` (B RHS), and scatters the result back to HBMC
-order.  The tensor's device picks the CUDA kernel or its plain version, so
-the reference's ``use_kernel`` / ``interpret`` switches have no counterpart.
+order.  The tables carry their barrier-free segments
+(``segments.barrier_segments``): the batched sweep launches once per
+segment.  The tensor's device picks the CUDA kernel or its plain version,
+so the reference's ``use_kernel`` / ``interpret`` switches have no
+counterpart.
 
 Both permutations are scatters (``index_copy_``) with distinct indices,
 precomputed on the host.  The reference gathers with ``rows`` and
@@ -21,6 +24,7 @@ after them the other way, and the buffer's leading rows are the result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -29,6 +33,7 @@ from ..core import sell
 from ..core.sell import StepTables
 from .config import DEFAULT_DEVICE, resolve_device
 from .hbmc_trisolve import hbmc_trisolve, hbmc_trisolve_batched
+from .segments import barrier_segments
 
 
 @dataclasses.dataclass
@@ -43,6 +48,13 @@ class DeviceRoundMajorTables:
                          #   the j-th pad lane
     n_slots: int         # n + 1, as in StepTables
     n_buf: int           # n_live + n_pad + n_unlaned: rows of either buffer
+
+    @functools.cached_property
+    def segments(self) -> np.ndarray:
+        """(n_segments,) int32 on the host, the barrier-free segments of
+        ``cols`` (one B6 launch each): computed at first use (the first
+        batched apply) and kept."""
+        return barrier_segments(self.cols.cpu().numpy(), fused=False)
 
     @classmethod
     def from_host(cls, h: sell.RoundMajorTables,
@@ -100,7 +112,8 @@ class DeviceRoundMajorTables:
     def apply_batched(self, q: torch.Tensor) -> torch.Tensor:
         """Multi-RHS triangular solve.  q, result: (n_slots-1, B)."""
         return self.from_round_major(hbmc_trisolve_batched(
-            self.cols, self.vals, self.dinv, self.to_round_major(q)))
+            self.cols, self.vals, self.dinv, self.to_round_major(q),
+            segments=self.segments))
 
 
 @dataclasses.dataclass(frozen=True)

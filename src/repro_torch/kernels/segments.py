@@ -1,0 +1,110 @@
+"""Barrier-free segments of a round-major step table.
+
+The trisolve kernels run the steps of a table in order, and on the card the
+only barrier between two steps is the boundary between two launches.  One
+launch per step is always safe.  Most of those barriers are not needed:
+the paper's point is that HBMC needs one synchronisation per color, not one
+per round (§4).  In the round-major tables a BMC block's rows sit in one
+lane across its color's rounds, and the level-1 blocks of one color are
+independent, so within a color a lane reads only what the same lane wrote,
+plus what earlier colors wrote.
+
+``barrier_segments`` finds the fewest launches that keep the result of the
+step-major order, for this ownership contract of the kernels:
+
+* one thread per (lane, column), the same lane at every step, runs the
+  steps of one launch in order, and threads run in no order against each
+  other;
+* step ``g`` writes slice ``dest(g)`` of the state, each lane its own
+  entry: ``dest(g) = g`` for a sweep table, and for a fused table
+  ``dest(g) = g`` when ``g < S``, ``2S-1-g`` when ``g >= S``.  So position
+  ``p`` is only ever written by lane ``p % R``, and a thread sees its own
+  lane's writes in program order;
+* a read at step ``g``, lane ``l``, of a position ``p`` with
+  ``p % R != l`` ties ``g`` to every step that writes slice ``p // R``:
+  the two must lie in different launches.  That covers both a read after
+  another lane's write (RAW) and a write after another lane's read (WAR).
+
+The gather positions are normalised as the kernels read them: ``c`` in
+``[-m, 0)`` wraps to ``c + m``, and ``c`` outside ``[-m, m)`` (the hole
+``S*R`` of the packing) reads nothing.  A step that reads another lane's
+entry of the slice it writes itself can be cut by no barrier (not even one
+launch per step); every packed table is free of it, and such a table
+raises ``ValueError``.
+
+Each tie needs a segment start in ``(min, max]`` of its two steps; the
+fewest starts covering all ties are placed greedily at the right ends of
+the ties in ascending order (interval stabbing).  The work is vectorised
+over the table's entries and its (step, slice) pairs, with a loop over
+steps only: 0.18-0.25 s for the (64, 32768, 4) table of a 1M-unknown
+plan on one host core (``chip_smoke.py`` phase 3).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+
+def step_dest(n_steps: int, fused: bool) -> np.ndarray:
+    """Slice written by each step of a table of ``n_steps`` steps."""
+    g = np.arange(n_steps)
+    if not fused:
+        return g
+    s_ = n_steps // 2
+    return np.where(g < s_, g, 2 * s_ - 1 - g)
+
+
+def barrier_segments(cols: np.ndarray, fused: bool) -> np.ndarray:
+    """Start step of each barrier-free segment of a step table.
+
+    Args:
+      cols: (G, R, K) gather positions of a round-major table: the fused
+        table of ``sell.fuse_round_major`` (``fused=True``, G = 2S) or one
+        sweep of ``sell.to_round_major`` (``fused=False``, G = S).  The
+        state has S*R positions.
+      fused: which of the two tables ``cols`` is.
+
+    Returns:
+      int32 (n_segments,): ascending start steps, the first always 0.
+      Segment i runs steps ``[starts[i], starts[i+1])``, the last one up to
+      G.  Running each segment as one launch, with the ownership contract
+      of the module docstring, gives the step-major result bit for bit.
+    """
+    cols = np.asarray(cols)
+    if cols.ndim != 3:
+        raise ValueError(f"cols must be (G, R, K), got {cols.shape}")
+    n_steps, r_, _ = cols.shape
+    if fused and n_steps % 2:
+        raise ValueError(f"a fused table has 2S steps, got {n_steps}")
+    if n_steps == 0:
+        return np.zeros(1, dtype=np.int32)
+    n_slices = n_steps // 2 if fused else n_steps
+    m = n_slices * r_
+    c = cols.astype(np.int64)
+    c = np.where(c < 0, c + m, c)
+    lane = np.arange(r_, dtype=np.int64)[None, :, None]
+    other = (c >= 0) & (c < m) & (c % r_ != lane)
+    step = np.broadcast_to(np.arange(n_steps, dtype=np.int64)[:, None, None],
+                           c.shape)
+    # (step, slice) pairs with a read of another lane's entry
+    key = np.unique(step[other] * n_slices + c[other] // r_)
+    g, slc = key // n_slices, key % n_slices
+    dest = step_dest(n_steps, fused)
+    if np.any(dest[g] == slc):
+        bad = int(g[np.flatnonzero(dest[g] == slc)[0]])
+        raise ValueError(f"step {bad} reads another lane's entry of the "
+                         f"slice it writes; no launch boundary can order "
+                         f"that")
+    # the steps that write each slice: g itself for a sweep, g and 2S-1-g
+    # for the fused table
+    writers = [slc] if not fused else [slc, 2 * n_slices - 1 - slc]
+    lo = np.concatenate([np.minimum(g, w) for w in writers])
+    hi = np.concatenate([np.maximum(g, w) for w in writers])
+    need = np.full(n_steps, -1, dtype=np.int64)   # max lo of ties ending here
+    np.maximum.at(need, hi, lo)
+    starts, last = [0], 0
+    for h in np.flatnonzero(need >= 0):
+        if last <= need[h]:           # no start in (need[h], h] yet
+            starts.append(int(h))
+            last = int(h)
+    return np.asarray(starts, dtype=np.int32)
+

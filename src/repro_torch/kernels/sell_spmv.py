@@ -9,7 +9,9 @@ the plain PyTorch version in ``ref``.  The TPU kernels' slice-tile padding
 was a VMEM artefact and is gone.
 
 ``launches`` / ``batched_launches`` count the wrapper calls that launched
-the single-RHS / batched CUDA kernel.
+the single-RHS / batched CUDA kernel, ``cuda_launches`` /
+``batched_cuda_launches`` the CUDA launches they issued (one per call), as
+the C entry points report them.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ from .ref import sell_spmv_batched_ref, sell_spmv_ref
 
 launches = 0
 batched_launches = 0
+cuda_launches = 0
+batched_cuda_launches = 0
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 
@@ -42,16 +46,18 @@ def _check(vals, cols, x, x_dim: int) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _run(entry: str, vals, cols, x) -> torch.Tensor:
+def _run(entry: str, vals, cols, x) -> tuple[torch.Tensor, int]:
+    """Launch ``entry``; returns y and the number of CUDA launches."""
     n_slices, k_, w_ = vals.shape
     y = torch.empty((n_slices * w_,) + tuple(x.shape[1:]), dtype=vals.dtype,
                     device=x.device)
-    if y.numel():
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        _build.call(f"{entry}_{_SUFFIX[vals.dtype]}", vals.data_ptr(),
+    if not y.numel():
+        return y, 0
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    n = _build.call(f"{entry}_{_SUFFIX[vals.dtype]}", vals.data_ptr(),
                     cols.data_ptr(), x.data_ptr(), y.data_ptr(), n_slices,
                     k_, w_, x.shape[0], *x.shape[1:], stream)
-    return y
+    return y, n
 
 
 def sell_spmv(vals: torch.Tensor, cols: torch.Tensor,
@@ -67,12 +73,13 @@ def sell_spmv(vals: torch.Tensor, cols: torch.Tensor,
     Returns:
       y: (n_slices * w,) in slice-row-major order.
     """
-    global launches
+    global launches, cuda_launches
     if runs_plain(x):
         return sell_spmv_ref(vals, cols, x)
     _check(vals, cols, x, 1)
-    y = _run("sell_spmv", vals, cols, x)
+    y, n = _run("sell_spmv", vals, cols, x)
     launches += 1
+    cuda_launches += n
     return y
 
 
@@ -86,10 +93,11 @@ def sell_spmv_batched(vals: torch.Tensor, cols: torch.Tensor,
     Returns:
       y: (n_slices * w, B) in slice-row-major order.
     """
-    global batched_launches
+    global batched_launches, batched_cuda_launches
     if runs_plain(x):
         return sell_spmv_batched_ref(vals, cols, x)
     _check(vals, cols, x, 2)
-    y = _run("sell_spmv_batched", vals, cols, x)
+    y, n = _run("sell_spmv_batched", vals, cols, x)
     batched_launches += 1
+    batched_cuda_launches += n
     return y

@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.core import build_plan, paper_problem
+from repro_torch.core import (PAPER_PROBLEMS, PAPER_SHIFTS, build_plan,
+                              paper_problem)
 from repro_torch.core.matrices import laplace_2d
 from repro_torch.core.smoothers import build_gs_smoother, gs_solve
 from repro_torch.kernels import (hbmc_trisolve, hbmc_trisolve_batched,
@@ -25,6 +26,7 @@ from repro_torch.kernels import (hbmc_trisolve, hbmc_trisolve_batched,
                                  hbmc_trisolve_fused_ref, hbmc_trisolve_ref,
                                  sell_spmv, sell_spmv_batched,
                                  sell_spmv_batched_ref, sell_spmv_ref)
+from repro_torch.kernels.segments import barrier_segments, step_dest
 from repro_torch.serve import SolverService, VirtualClock
 
 pytestmark = pytest.mark.cuda
@@ -255,3 +257,197 @@ def test_smoother_on_card_matches_cpu(cuda):
                       sweeps=10, a_bar=a_hb)[1] for dev in (cuda, "cpu")]
     np.testing.assert_allclose(hists[0], hists[1], rtol=1e-12)
     assert all(np.diff(hists[0]) < 0)
+
+
+# -- B3 / B6: one launch per barrier-free segment ---------------------------
+
+def _segment_cases(plan, plan_idx):
+    """(batched kernel, its plain version, the single-RHS kernel, table,
+    slices of q) for a plan's fused table and its index plan's sweeps."""
+    t, kp = plan._precond.tables, plan_idx._precond.kernel
+    return ([(hbmc_trisolve_fused_batched, hbmc_trisolve_fused_batched_ref,
+              hbmc_trisolve_fused, t, t.n_steps)]
+            + [(hbmc_trisolve_batched, hbmc_trisolve_batched_ref,
+                hbmc_trisolve, sw, sw.cols.shape[0])
+               for sw in (kp.fwd, kp.bwd)])
+
+
+def _cuda_launched(fn):
+    before = kernels.cuda_launch_counts()
+    out = fn()
+    return out, sum(v - before[k]
+                    for k, v in kernels.cuda_launch_counts().items())
+
+
+@pytest.mark.parametrize("nb", [1, 3, 8])
+@pytest.mark.parametrize("scheduler", ["coloring", "levelset"])
+@pytest.mark.parametrize("name", PAPER_PROBLEMS)
+def test_segmented_kernels_bitwise_on_paper_plans(cuda, name, scheduler,
+                                                  nb):
+    """B3 and B6 with their tables' segments: bitwise the plain version,
+    bitwise the per-step cut, each column bitwise B1's / B5's, and one CUDA
+    launch per segment."""
+    a, _ = paper_problem(name, scale="tiny")
+    kw = dict(block_size=16, w=8, shift=PAPER_SHIFTS.get(name, 0.0),
+              scheduler=scheduler, device=cuda)
+    plan, plan_idx = build_plan(a, **kw), build_plan(a, layout="index", **kw)
+    rng = np.random.default_rng(nb)
+    for fn, ref, single, t, n_slices in _segment_cases(plan, plan_idx):
+        q = torch.tensor(rng.normal(size=(n_slices, t.cols.shape[1], nb)),
+                         device=cuda)
+        z, n = _cuda_launched(lambda: fn(
+            t.cols, t.vals, t.dinv, q, segments=t.segments))
+        assert n == t.segments.size
+        assert torch.equal(z, ref(t.cols, t.vals, t.dinv, q))
+        step, n_step = _cuda_launched(lambda: fn(
+            t.cols, t.vals, t.dinv, q, segments=np.arange(t.cols.shape[0])))
+        assert n_step == t.cols.shape[0]
+        assert torch.equal(z, step)
+        for j in range(nb):
+            assert torch.equal(z[:, j], single(t.cols, t.vals, t.dinv,
+                                               q[..., j].contiguous()))
+
+
+def test_segmented_kernels_repeat_bitwise(cuda):
+    """20 calls on one input give one result: a race shows as a bit."""
+    coeff = np.exp(np.random.default_rng(1).normal(0, 1, size=(256, 256)))
+    a = laplace_2d(256, 256, coeff)
+    kw = dict(block_size=16, w=8, device=cuda)
+    plan, plan_idx = build_plan(a, **kw), build_plan(a, layout="index", **kw)
+    rng = np.random.default_rng(0)
+    for fn, _, _, t, n_slices in _segment_cases(plan, plan_idx):
+        assert t.segments.size == (3 if n_slices * 2 == t.cols.shape[0]
+                                   else 2)
+        q = torch.tensor(rng.normal(size=(n_slices, t.cols.shape[1], 8)),
+                         device=cuda)
+        z0 = fn(t.cols, t.vals, t.dinv, q, segments=t.segments)
+        for _ in range(19):
+            assert torch.equal(fn(t.cols, t.vals, t.dinv, q,
+                                  segments=t.segments), z0)
+
+
+def test_segmented_kernels_propagate_nan(cuda):
+    a, _ = paper_problem("thermal2", scale="tiny")
+    kw = dict(block_size=16, w=8, device=cuda)
+    plan, plan_idx = build_plan(a, **kw), build_plan(a, layout="index", **kw)
+    for fn, ref, _, t, n_slices in _segment_cases(plan, plan_idx):
+        q = torch.ones((n_slices, t.cols.shape[1], 3), device=cuda,
+                       dtype=torch.float64)
+        q[1, 2, 1] = float("nan")
+        z = fn(t.cols, t.vals, t.dinv, q, segments=t.segments)
+        want = ref(t.cols, t.vals, t.dinv, q)
+        assert torch.isnan(z[:, 1]).any() and not torch.isnan(z[:, 0]).any()
+        torch.testing.assert_close(z, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_segmented_kernels_with_fewer_lanes_than_a_block(cuda, seed):
+    """R of 5 lanes (far fewer threads than one block), random tables with
+    many cross-lane reads: many segments, still bitwise."""
+    s, r, k = 4, 5, 3
+    m = s * r
+    rng = np.random.default_rng(seed)
+    for fused in (True, False):
+        n_steps = 2 * s if fused else s
+        cols = rng.integers(-m, m + 3, size=(n_steps, r, k))
+        dest = step_dest(n_steps, fused)
+        own = (np.where(cols < 0, cols + m, cols) // r) == \
+            dest[:, None, None]
+        cols = np.where(own, m, cols).astype(np.int32)
+        if not fused:        # a sweep reads earlier slices only
+            cols = np.where(np.where(cols < 0, cols + m, cols) // r
+                            > dest[:, None, None], m, cols).astype(np.int32)
+        seg = barrier_segments(cols, fused)
+        c = np.where(cols < 0, cols + m, cols)
+        ahead = (c < m) & (c // r >= dest[:, None, None])
+        assert ahead[:s].any() == fused   # the kernel's read mask matters
+        t = [torch.tensor(x, device=cuda) for x in (
+            cols, 0.3 * rng.normal(size=(n_steps, r, k)),
+            rng.uniform(0.5, 1.5, size=(n_steps, r)))]
+        for nb in (1, 3):
+            q = torch.tensor(rng.normal(size=(s, r, nb)), device=cuda)
+            fn, ref = ((hbmc_trisolve_fused_batched,
+                        hbmc_trisolve_fused_batched_ref) if fused else
+                       (hbmc_trisolve_batched, hbmc_trisolve_batched_ref))
+            z, n = _cuda_launched(lambda: fn(*t, q, segments=seg))
+            assert n == seg.size
+            assert torch.equal(z, ref(*t, q))
+            # None computes the same segments from cols on the host
+            z_none, n_none = _cuda_launched(lambda: fn(*t, q))
+            assert n_none == seg.size and torch.equal(z_none, z)
+
+
+def test_segment_arguments_are_checked(cuda):
+    a, _ = paper_problem("ieej", scale="tiny")
+    t = build_plan(a, block_size=16, w=8, device=cuda)._precond.tables
+    q = torch.zeros((t.n_steps, t.lanes, 2), device=cuda,
+                    dtype=torch.float64)
+    g = 2 * t.n_steps
+    for bad in ([1, 5], [0, 5, 5], [0, g], [], [[0, 1]]):
+        with pytest.raises(ValueError, match="segments"):
+            hbmc_trisolve_fused_batched(t.cols, t.vals, t.dinv, q,
+                                        segments=bad)
+
+
+def test_cuda_launch_counts_per_kernel(cuda):
+    """The CUDA launches each wrapper reports: one per step of B1 / B5, one
+    per segment of B3 / B6, one per call of B2 / B4."""
+    a, _ = paper_problem("ieej", scale="tiny")
+    kw = dict(block_size=16, w=8, device=cuda)
+    plan, plan_idx = build_plan(a, **kw), build_plan(a, layout="index", **kw)
+    t, sw = plan._precond.tables, plan_idx._precond.kernel.fwd
+    sv, sc = plan._spmv_vals, plan._spmv_cols
+    rng = np.random.default_rng(0)
+    q = torch.tensor(rng.normal(size=(t.n_steps, t.lanes, 3)), device=cuda)
+    qs = torch.tensor(rng.normal(size=tuple(sw.dinv.shape) + (3,)),
+                      device=cuda)
+    x = torch.tensor(rng.normal(size=(plan._spmv_n, 3)), device=cuda)
+    kernels.reset_launch_counts()
+    hbmc_trisolve_fused(t.cols, t.vals, t.dinv, q[..., 0].contiguous())
+    hbmc_trisolve_fused_batched(t.cols, t.vals, t.dinv, q,
+                                segments=t.segments)
+    hbmc_trisolve(sw.cols, sw.vals, sw.dinv, qs[..., 0].contiguous())
+    hbmc_trisolve_batched(sw.cols, sw.vals, sw.dinv, qs,
+                          segments=sw.segments)
+    sell_spmv(sv, sc, x[:, 0].contiguous())
+    sell_spmv_batched(sv, sc, x)
+    assert kernels.cuda_launch_counts() == {
+        "hbmc_trisolve_fused": 2 * t.n_steps, "sell_spmv": 1,
+        "hbmc_trisolve_fused_batched": t.segments.size,
+        "sell_spmv_batched": 1, "hbmc_trisolve": sw.cols.shape[0],
+        "hbmc_trisolve_batched": sw.segments.size}
+    assert set(kernels.launch_counts().values()) == {1}
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_trisolve_kernels_ignore_the_output_buffers_old_values(cuda, fused):
+    """The kernels write into an uninitialised buffer: the caching
+    allocator hands them a block just filled with NaN, and the result is
+    still bitwise the plain version's (which starts from zeros), on tables
+    whose forward steps read entries no step has written yet."""
+    s, r, k, nb = 4, 37, 3, 3
+    m = s * r
+    n_steps = 2 * s if fused else s
+    rng = np.random.default_rng(7)
+    cols = rng.integers(-m, m + 3, size=(n_steps, r, k))
+    dest = step_dest(n_steps, fused)
+    c = np.where(cols < 0, cols + m, cols)
+    cols = np.where(c // r == dest[:, None, None], m, cols).astype(np.int32)
+    t = [torch.tensor(v, device=cuda) for v in (
+        cols, 0.3 * rng.normal(size=(n_steps, r, k)),
+        rng.uniform(0.5, 1.5, size=(n_steps, r)))]
+    q1 = torch.tensor(rng.normal(size=(s, r)), device=cuda)
+    qb = torch.tensor(rng.normal(size=(s, r, nb)), device=cuda)
+    single, batched, single_ref, batched_ref = (
+        (hbmc_trisolve_fused, hbmc_trisolve_fused_batched,
+         hbmc_trisolve_fused_ref, hbmc_trisolve_fused_batched_ref)
+        if fused else (hbmc_trisolve, hbmc_trisolve_batched,
+                       hbmc_trisolve_ref, hbmc_trisolve_batched_ref))
+    for fn, ref, q in ((single, single_ref, q1), (batched, batched_ref, qb)):
+        junk = torch.full((m,) + tuple(q.shape[2:]), float("nan"),
+                          dtype=q.dtype, device=cuda)
+        ptr = junk.data_ptr()
+        del junk
+        z = fn(*t, q)
+        assert z.data_ptr() == ptr        # the NaN block was reused
+        assert torch.equal(z, ref(*t, q))

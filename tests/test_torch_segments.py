@@ -1,0 +1,391 @@
+"""Barrier-free segments of the round-major step tables
+(``repro_torch.kernels.segments``), which the batched trisolve kernels B3
+and B6 launch by: one CUDA launch per segment instead of one per step.
+
+The card runs the steps of one segment with one thread per (lane, column),
+the same lane at every step, and the threads in no order.  A numpy
+emulator here runs each segment lane by lane, in ascending and in
+descending lane order -- two of the orders the card may take -- and must
+give the plain step-major version's bits; with the segments merged it must
+not, which shows that it catches a missing barrier.  The kernels themselves
+are held to the same bits on the card (tests/test_torch_cuda.py,
+chip_smoke.py).
+"""
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+from repro_torch.core import (PAPER_PROBLEMS, PAPER_SHIFTS, SolverPlan,
+                              build_plan, paper_problem)
+from repro_torch.core.matrices import laplace_2d
+from repro_torch.kernels import (hbmc_trisolve_batched,
+                                 hbmc_trisolve_batched_ref,
+                                 hbmc_trisolve_fused_batched,
+                                 hbmc_trisolve_fused_batched_ref)
+from repro_torch.kernels.segments import barrier_segments, step_dest
+
+KNOBS = dict(block_size=16, w=8, device="cpu")
+# (fused, forward sweep, backward sweep) segment counts of the tiny paper
+# plans at block 16, w 8, and the starts themselves where they are few
+COUNTS = {
+    "coloring": {"thermal2": (5, 3, 3), "parabolic_fem": (5, 3, 3),
+                 "g3_circuit": (27, 14, 14), "audikw_1": (7, 4, 4),
+                 "ieej": (3, 2, 2)},
+    "levelset": {"thermal2": (49, 25, 25), "parabolic_fem": (49, 25, 25),
+                 "g3_circuit": (55, 28, 28), "audikw_1": (39, 20, 20),
+                 "ieej": (21, 11, 11)},
+}
+STARTS = {
+    ("coloring", "thermal2"): ([0, 17, 40, 71, 88], [0, 17, 40],
+                               [0, 23, 40]),
+    ("coloring", "audikw_1"): ([0, 24, 32, 56, 88, 96, 120],
+                               [0, 24, 32, 56], [0, 24, 32, 56]),
+    ("coloring", "ieej"): ([0, 16, 48], [0, 16], [0, 16]),
+}
+
+
+def _thermal2(grid):
+    coeff = np.exp(np.random.default_rng(1).normal(0, 1, size=(grid, grid)))
+    return laplace_2d(grid, grid, coeff)
+
+
+def _plans(name, scheduler="coloring"):
+    a, _ = paper_problem(name, scale="tiny")
+    kw = dict(KNOBS, shift=PAPER_SHIFTS.get(name, 0.0), scheduler=scheduler)
+    return build_plan(a, **kw), build_plan(a, layout="index", **kw)
+
+
+def _tables(name, scheduler="coloring"):
+    """(label, cols, vals, dinv, fused) of a tiny paper plan's fused table
+    and of both sweeps of its index plan, as numpy."""
+    plan, plan_idx = _plans(name, scheduler)
+    t, kp = plan._precond.tables, plan_idx._precond.kernel
+    return [(lab, x.cols.numpy(), x.vals.numpy(), x.dinv.numpy(), fused)
+            for lab, x, fused in (("fused", t, True), ("fwd", kp.fwd, False),
+                                  ("bwd", kp.bwd, False))]
+
+
+def emulate(cols, vals, dinv, q, starts, fused, descending=False,
+            mask=True):
+    """Each segment lane by lane, each lane's steps in order, one column at
+    a time in Python floats, with the kernels' arithmetic: the gather
+    masked as ``jnp.take(fill_value=0)``, products rounded and summed k in
+    order from 0, then ``(q_cur - acc) * dinv``.  q: (S, R, B) -> (S*R, B).
+
+    The state starts as NaN, standing for the kernels' uninitialised
+    buffer; as in the kernels, a forward step g reads 0 from the slices at
+    or after g, which no earlier step wrote (``mask=False`` reads them).
+    """
+    n_steps, r_, k_ = cols.shape
+    s_ = q.shape[0]
+    m = s_ * r_
+    c = cols.astype(np.int64)
+    c = np.where(c < 0, c + m, c)
+    valid = (c >= 0) & (c < m)
+    c, valid = c.tolist(), valid.tolist()
+    vals, dinv = vals.tolist(), dinv.tolist()
+    dest = step_dest(n_steps, fused).tolist()
+    bounds = list(starts) + [n_steps]
+    lanes = range(r_ - 1, -1, -1) if descending else range(r_)
+    out = np.empty((m, q.shape[2]))
+    for col in range(q.shape[2]):
+        qb = q[..., col].tolist()
+        y = [float("nan")] * m
+        for g0, g1 in zip(bounds[:-1], bounds[1:]):
+            for lane in lanes:
+                for g in range(g0, g1):
+                    cg, vg, ok = c[g][lane], vals[g][lane], valid[g][lane]
+                    lim = g * r_ if mask and (not fused or g < s_) else m
+                    acc = 0.0
+                    for j in range(k_):
+                        acc = acc + vg[j] * (y[cg[j]] if ok[j] and
+                                             cg[j] < lim else 0.0)
+                    p = dest[g] * r_ + lane
+                    q_cur = qb[g][lane] if (not fused or g < s_) else y[p]
+                    y[p] = (q_cur - acc) * dinv[g][lane]
+        out[:, col] = y
+    return out
+
+
+def _plain(cols, vals, dinv, q, fused):
+    ref = (hbmc_trisolve_fused_batched_ref if fused
+           else hbmc_trisolve_batched_ref)
+    return ref(*(torch.from_numpy(np.ascontiguousarray(x))
+                 for x in (cols, vals, dinv, q))).numpy()
+
+
+def _rhs(cols, fused, nb, seed):
+    n_steps, r_, _ = cols.shape
+    s_ = n_steps // 2 if fused else n_steps
+    return np.random.default_rng(seed).normal(size=(s_, r_, nb))
+
+
+def test_thermal2_segments_have_the_1m_plans_structure():
+    """thermal2 at grid 256 (n = 65,536) has the 1M plan's structure at
+    block 16, w 8: 2 colors, S = 32; one segment per color boundary."""
+    a = _thermal2(256)
+    plan = build_plan(a, **KNOBS)
+    plan_idx = build_plan(a, layout="index", **KNOBS)
+    t, kp = plan._precond.tables, plan_idx._precond.kernel
+    assert tuple(t.cols.shape) == (64, 2048, 4)
+    assert barrier_segments(t.cols.numpy(), fused=True).tolist() == \
+        [0, 16, 48]
+    for sweep in (kp.fwd, kp.bwd):
+        assert tuple(sweep.cols.shape) == (32, 2048, 4)
+        assert barrier_segments(sweep.cols.numpy(), fused=False).tolist() \
+            == [0, 16]
+
+
+@pytest.mark.parametrize("scheduler", ["coloring", "levelset"])
+@pytest.mark.parametrize("name", PAPER_PROBLEMS)
+def test_segments_pinned_on_paper_plans(name, scheduler):
+    """Under ``levelset`` nearly every step is its own segment (tiny
+    thermal2: 49 for 50 fused steps): its rounds are dependency levels, so
+    a lane's rows of one round depend on other lanes' rows of the round
+    before."""
+    got = []
+    for _, cols, _, _, fused in _tables(name, scheduler):
+        seg = barrier_segments(cols, fused)
+        assert seg.dtype == np.int32 and seg[0] == 0
+        assert np.all(np.diff(seg) > 0) and seg[-1] < cols.shape[0]
+        got.append(seg.tolist())
+    assert tuple(len(s) for s in got) == COUNTS[scheduler][name]
+    if (scheduler, name) in STARTS:
+        assert tuple(got) == STARTS[scheduler, name]
+
+
+@pytest.mark.parametrize("nb", [1, 3])
+@pytest.mark.parametrize("name", PAPER_PROBLEMS)
+def test_lane_order_emulation_is_bitwise_step_major(name, nb):
+    """Fused and sweep tables, lanes ascending and descending within each
+    segment: bitwise the plain step-major version."""
+    for i, (lab, cols, vals, dinv, fused) in enumerate(_tables(name)):
+        q = _rhs(cols, fused, nb, seed=10 * nb + i)
+        want = _plain(cols, vals, dinv, q, fused)
+        seg = barrier_segments(cols, fused)
+        for descending in (False, True):
+            got = emulate(cols, vals, dinv, q, seg, fused, descending)
+            np.testing.assert_array_equal(got, want, err_msg=f"{name} {lab} "
+                                          f"descending={descending}")
+
+
+def test_levelset_emulation_is_bitwise_step_major():
+    for lab, cols, vals, dinv, fused in _tables("thermal2", "levelset"):
+        q = _rhs(cols, fused, 2, seed=5)
+        want = _plain(cols, vals, dinv, q, fused)
+        for descending in (False, True):
+            np.testing.assert_array_equal(
+                emulate(cols, vals, dinv, q, barrier_segments(cols, fused),
+                        fused, descending), want, err_msg=lab)
+
+
+@pytest.mark.parametrize("name", ["thermal2", "ieej"])
+def test_merged_segments_are_caught_by_the_emulator(name):
+    """One segment for the whole table (no barrier at all) races: on every
+    table one of the emulator's lane orders, at least, gives other bits
+    (the ascending one on the fused tables)."""
+    for lab, cols, vals, dinv, fused in _tables(name):
+        q = _rhs(cols, fused, 1, seed=3)
+        want = _plain(cols, vals, dinv, q, fused)
+        differ = [not np.array_equal(
+            emulate(cols, vals, dinv, q, [0], fused, d), want)
+            for d in (False, True)]
+        assert any(differ), (name, lab)
+        assert differ[0] or not fused, (name, lab)
+
+
+def test_dropping_any_start_races():
+    """Every computed start is needed: without any one of them the
+    emulator leaves the step-major bits, in one lane order or the other."""
+    _, cols, vals, dinv, fused = _tables("ieej")[0]
+    q = _rhs(cols, fused, 1, seed=4)
+    want = _plain(cols, vals, dinv, q, fused)
+    seg = barrier_segments(cols, fused).tolist()
+    for drop in seg[1:]:
+        fewer = [s for s in seg if s != drop]
+        assert any(not np.array_equal(
+            emulate(cols, vals, dinv, q, fewer, fused, d), want)
+            for d in (False, True)), drop
+
+
+def _random_fused(s, r, k, seed):
+    """Random fused tables whose steps read any other slice (and the hole):
+    many cross-lane ties, so many segments."""
+    rng = np.random.default_rng(seed)
+    m = s * r
+    dest = step_dest(2 * s, True)
+    cols = rng.integers(-m, m + 3, size=(2 * s, r, k))
+    own = (np.where(cols < 0, cols + m, cols) // r) == dest[:, None, None]
+    cols = np.where(own, m, cols).astype(np.int32)
+    vals = 0.3 * rng.normal(size=(2 * s, r, k))
+    dinv = rng.uniform(0.5, 1.5, size=(2 * s, r))
+    return cols, vals, dinv
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_random_tables_emulate_bitwise(seed):
+    cols, vals, dinv = _random_fused(4, 6, 2, seed)
+    q = _rhs(cols, True, 2, seed)
+    want = _plain(cols, vals, dinv, q, True)
+    seg = barrier_segments(cols, True)
+    assert 1 < seg.size <= cols.shape[0]
+    for descending in (False, True):
+        np.testing.assert_array_equal(
+            emulate(cols, vals, dinv, q, seg, True, descending), want)
+    # one launch per step is always a valid cut
+    np.testing.assert_array_equal(
+        emulate(cols, vals, dinv, q, np.arange(cols.shape[0]), True), want)
+
+
+def test_own_lane_reads_never_cut_a_segment():
+    """A table whose every read is of the reading lane's own entries (or
+    the hole) is one segment, however its steps chain."""
+    s, r, k = 5, 7, 3
+    m = s * r
+    rng = np.random.default_rng(0)
+    slices = rng.integers(0, s, size=(2 * s, r, k))
+    cols = (slices * r + np.arange(r)[None, :, None]).astype(np.int32)
+    cols[:, :, 0] = m
+    assert barrier_segments(cols, fused=True).tolist() == [0]
+    assert barrier_segments(cols[:s], fused=False).tolist() == [0]
+
+
+def test_reading_another_lane_of_the_own_slice_raises():
+    cols = np.full((4, 3, 1), 6, dtype=np.int32)   # S = 2, R = 3: holes
+    cols[1, 0, 0] = 3 + 1        # step 1 writes slice 1 and reads lane 1 of it
+    with pytest.raises(ValueError, match="step 1"):
+        barrier_segments(cols, fused=True)
+    with pytest.raises(ValueError, match="2S"):
+        barrier_segments(cols[:3], fused=True)
+
+
+def test_wrapped_and_out_of_range_positions():
+    """c in [-m, 0) wraps and ties like c + m; c outside [-m, m) reads
+    nothing and ties nothing."""
+    s, r = 3, 2
+    m = s * r
+    cols = np.full((s, r, 1), m, dtype=np.int32)
+    cols[2, 0, 0] = 1 - m          # wraps to slice 0, lane 1
+    assert barrier_segments(cols, fused=False).tolist() == [0, 2]
+    cols[2, 0, 0] = -m - 1         # outside: reads nothing
+    assert barrier_segments(cols, fused=False).tolist() == [0]
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_reads_of_unwritten_entries_are_masked(seed):
+    """A forward step reading a slice that it or a later step writes reads
+    the zero the step-major state starts from: the kernels mask those
+    reads, so their output buffer needs no zero pass.  Random tables make
+    such reads (there the unmasked NaN buffer shows); packed tables make
+    none (the paper plans' emulation above starts from NaN too)."""
+    cols, vals, dinv = _random_fused(4, 6, 2, seed)
+    q = _rhs(cols, True, 2, seed)
+    want = _plain(cols, vals, dinv, q, True)
+    seg = barrier_segments(cols, True)
+    np.testing.assert_array_equal(emulate(cols, vals, dinv, q, seg, True),
+                                  want)
+    assert np.isnan(emulate(cols, vals, dinv, q, seg, True,
+                            mask=False)).any()
+    # a sweep step reading its own entry, and a later slice, before either
+    # is written
+    s, r = 3, 2
+    m = s * r
+    sweep = np.full((s, r, 2), m, dtype=np.int32)
+    sweep[1, 1] = (r + 1, 2 * r)
+    vals, dinv = np.ones((s, r, 2)), np.ones((s, r))
+    q = _rhs(sweep, False, 1, seed)
+    want = _plain(sweep, vals, dinv, q, False)
+    np.testing.assert_array_equal(
+        emulate(sweep, vals, dinv, q, np.arange(s), False), want)
+    assert np.isnan(emulate(sweep, vals, dinv, q, np.arange(s), False,
+                            mask=False)).any()
+
+
+def test_plain_wrappers_ignore_segments():
+    """On the CPU the batched wrappers run the step-major plain version,
+    whatever cut they are given."""
+    _, cols, vals, dinv, _ = _tables("ieej")[0]
+    q = _rhs(cols, True, 3, seed=1)
+    t = [torch.from_numpy(np.ascontiguousarray(x))
+         for x in (cols, vals, dinv, q)]
+    want = hbmc_trisolve_fused_batched_ref(*t)
+    for seg in (None, [0], np.arange(cols.shape[0])):
+        assert torch.equal(hbmc_trisolve_fused_batched(*t, segments=seg),
+                           want)
+    _, cols, vals, dinv, _ = _tables("ieej")[1]
+    t = [torch.from_numpy(np.ascontiguousarray(x))
+         for x in (cols, vals, dinv, _rhs(cols, False, 2, seed=2))]
+    assert torch.equal(hbmc_trisolve_batched(*t, segments=[0]),
+                       hbmc_trisolve_batched_ref(*t))
+
+
+def _plan_arrays(plan):
+    t, rm = plan._precond.tables, plan._rm
+    return dict(cols=t.cols.numpy(), vals=t.vals.numpy(),
+                dinv=t.dinv.numpy(), rows=rm.rows, pos=rm.pos,
+                n_slots=rm.n_slots, sell_vals=plan._spmv_vals.numpy(),
+                sell_cols=plan._spmv_cols.numpy(), sell_n=plan._spmv_n,
+                n=plan.n, n_padded=plan.n_padded, perm=plan._perm,
+                method=plan.method, n_colors=plan.n_colors)
+
+
+def test_plans_carry_their_tables_segments():
+    a = _thermal2(40)
+    plan = build_plan(a, **KNOBS)
+    t = plan._precond.tables
+    want = barrier_segments(t.cols.numpy(), fused=True)
+    assert "segments" not in vars(t)      # computed at first use only
+    assert isinstance(t.segments, np.ndarray) and t.segments.dtype == np.int32
+    np.testing.assert_array_equal(t.segments, want)
+    assert t.segments is t.segments       # and kept
+    # from_arrays: from the arrays' cols
+    again = SolverPlan.from_arrays(_plan_arrays(plan), device="cpu")
+    np.testing.assert_array_equal(again._precond.tables.segments, want)
+    # refactor changes values, not cols: the same segments
+    plan.refactor(sp.csr_matrix(a) * 2.0)
+    np.testing.assert_array_equal(plan._precond.tables.segments, want)
+    np.testing.assert_array_equal(plan._precond.tables.cols.numpy(),
+                                  again._precond.tables.cols.numpy())
+
+    plan_idx = build_plan(a, layout="index", **KNOBS)
+    for sweep in (plan_idx._precond.kernel.fwd, plan_idx._precond.kernel.bwd):
+        assert "segments" not in vars(sweep)
+        np.testing.assert_array_equal(
+            sweep.segments, barrier_segments(sweep.cols.numpy(), fused=False))
+    before = [s.segments.copy() for s in (plan_idx._precond.kernel.fwd,
+                                          plan_idx._precond.kernel.bwd)]
+    plan_idx.refactor(sp.csr_matrix(a) * 3.0)
+    for sweep, seg in zip((plan_idx._precond.kernel.fwd,
+                           plan_idx._precond.kernel.bwd), before):
+        np.testing.assert_array_equal(sweep.segments, seg)
+
+
+def test_solve_paths_pass_the_tables_segments(monkeypatch):
+    """The batched applies hand the kernels their tables' own segments."""
+    from repro_torch.core import trisolve
+    from repro_torch.kernels import ops
+    seen = []
+
+    def spy(real):
+        def call(*args, segments=None):
+            seen.append(segments)
+            return real(*args, segments=segments)
+        return call
+
+    monkeypatch.setattr(trisolve, "hbmc_trisolve_fused_batched",
+                        spy(hbmc_trisolve_fused_batched))
+    monkeypatch.setattr(ops, "hbmc_trisolve_batched",
+                        spy(hbmc_trisolve_batched))
+    a = _thermal2(24)
+    b = np.random.default_rng(0).normal(size=(a.shape[0], 2))
+    plan = build_plan(a, **KNOBS)
+    plan.solve_batched(b)
+    t = plan._precond.tables
+    assert seen and all(s is t.segments for s in seen)
+    seen.clear()
+    plan_idx = build_plan(a, layout="index", **KNOBS)
+    plan_idx.solve_batched(b)
+    kp = plan_idx._precond.kernel
+    assert seen and all(s is kp.fwd.segments or s is kp.bwd.segments
+                        for s in seen)
