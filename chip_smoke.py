@@ -15,19 +15,19 @@ its last line:
    The batched kernels likewise at B in {1, 3, 8} on the bench tables and
    at B = 8 on the 1M tables, and each batched column bitwise equal to the
    single-RHS kernel on that column.  The single-sweep kernels (B5, B6) on
-   both sweep tables of the index-layout plans of the same matrices.  B3
-   and B6, which launch once per barrier-free segment of their table, are
-   held bitwise (max error 0.0) to their plain versions and to the same
-   kernel cut into one launch per step, with one CUDA launch per segment
-   (the segment count of each plan is printed); 20 repeated calls on the
-   1M tables give one result bit for bit.
+   both sweep tables of the index-layout plans of the same matrices.  Every
+   trisolve kernel (B1, B3, B5, B6) launches once per barrier-free segment
+   of its table and is held bitwise (max error 0.0) to its plain version
+   and to the same kernel cut into one launch per step, with one CUDA
+   launch per segment (the segment count of each plan is printed); 20
+   repeated calls of each on the 1M tables give one result bit for bit.
 3. Main path: ``build_plan`` + ``plan.solve`` on thermal2 at n = 1,048,576
    (laplace_2d(1024, 1024) with a log-normal coefficient), HBMC, block 16,
    w 8.  CONVERGED in 48 +- 2 iterations, true relres < 1e-6 on the host,
-   one trisolve kernel launch per apply (iterations + 1, 64 CUDA launches
-   each) and one SpMV kernel launch per iteration.  Every phase from here
-   to 3d checks the CUDA launches each wrapper reports (one per step of B1
-   / B5, one per segment of B3 / B6, one per call of B2 / B4) as well as
+   one trisolve kernel launch per apply (iterations + 1, 3 CUDA launches
+   each, one per segment) and one SpMV kernel launch per iteration.  Every
+   phase from here to 3d checks the CUDA launches each wrapper reports (one
+   per segment of B1 / B3 / B5 / B6, one per call of B2 / B4) as well as
    the wrapper calls.  The main plans' barrier-free segments, recomputed
    and timed on the host: [0, 16, 48] for the fused table, [0, 16] for each
    sweep.  A small solve on the card is held against the same solve on the
@@ -45,10 +45,10 @@ its last line:
    service's cached plan; 3 CUDA launches per B3 apply.
 3d. Index layout: ``build_plan(..., layout="index")`` on the same matrix:
    ``plan.solve`` CONVERGED in 48 +- 2 iterations, true relres < 1e-6, two
-   single-sweep launches per apply (2 x (iterations + 1)) and one SpMV
-   launch per iteration; ``plan.solve_batched`` on the 8 columns, each at
-   its index-plan ``plan.solve`` count, with 2 CUDA launches per B6 sweep;
-   one preconditioner apply bitwise
+   single-sweep launches per apply (2 x (iterations + 1), 2 CUDA launches
+   each) and one SpMV launch per iteration; ``plan.solve_batched`` on the
+   8 columns, each at its index-plan ``plan.solve`` count, with 2 CUDA
+   launches per B6 sweep; one preconditioner apply bitwise
    equal, on every live entry, to the round-major plan's fused apply of the
    same vector; a small index solve on the card against the CPU.
 3e. Smoother: GS (omega 1) and SOR (omega 1.5) on the index plan's
@@ -56,17 +56,20 @@ its last line:
    residuals; at a small size the card's residual history equal to the
    CPU's to rtol 1e-12.
 4. Times with CUDA events after a warm-up, each beside its bound from the
-   bytes it must move: per trisolve apply, per SpMV, per PCG iteration, the
-   plain versions, and the cuSPARSE CSR SpMV (``torch.mv`` on a CSR tensor,
-   timed as a yardstick only; the port never calls it); the same at B = 8
-   for the batched kernels (cuSPARSE SpMM, ``torch.sparse.mm``, as B4's
-   yardstick; B3 in turns with its tables' segments and one launch per
-   step, the per-round launch pattern), ms per batched iteration, and the
-   service's solves per second;
-   per single sweep B5, and B6 at B = 8 (in turns as B3; cuSPARSE SpSV /
-   SpSM, ``torch.triangular_solve`` on a CSR factor, as their yardstick
-   where the installed torch takes one), the index layout's ms per
-   iteration and per batched column, and ms per smoother sweep.
+   bytes it must move: per trisolve apply (B1 in turns A B C C B A: A
+   B3's body at B = 1 with the segments, B B1 with the segments, C B1 one
+   launch per step; device time of each under the profiler), per SpMV,
+   per PCG iteration, the plain versions, and the cuSPARSE CSR SpMV
+   (``torch.mv`` on a CSR tensor, timed as a yardstick only; the port
+   never calls it); the same at B = 8 for the batched kernels (cuSPARSE
+   SpMM, ``torch.sparse.mm``, as B4's yardstick; B3 in turns with its
+   tables' segments and one launch per step, the per-round launch
+   pattern), ms per batched iteration, and the service's solves per
+   second; per single sweep B5 (in turns as B1), and B6 at B = 8 (in
+   turns as B3; cuSPARSE SpSV / SpSM, ``torch.triangular_solve`` on a CSR
+   factor, as their yardstick where the installed torch takes one), the
+   index layout's ms per iteration and per batched column, and ms per
+   smoother sweep.
 
 Its last lines: one JSON object with a row per kernel (``launches`` are
 wrapper calls on the main path, ``cuda_launches`` the CUDA launches they
@@ -169,6 +172,26 @@ def time_ms(fn, reps: int, device) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int, device) -> float | None:
+    """Device ms per call of ``fn``: its kernels' time under torch.profiler
+    over ``reps`` calls after one warm-up call; None off the card or where
+    the profiler records no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if device.type != "cuda":
+        return None
+    fn()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(device)
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / reps if us else None
+
+
 def cuda_launches_per_call(fn) -> int:
     """CUDA launches of the port's kernels in one call of ``fn``."""
     from repro_torch import kernels
@@ -235,7 +258,8 @@ def check_kernels(plan, label: str, seed: int) -> dict:
     rng = np.random.default_rng(seed)
     q = torch.tensor(rng.normal(size=(t.n_steps, t.lanes)), device=dev).to(dt)
     x = torch.tensor(rng.normal(size=plan._spmv_n), device=dev).to(dt)
-    z = hbmc_trisolve_fused(t.cols, t.vals, t.dinv, q)
+    z = check_segmented(hbmc_trisolve_fused, hbmc_trisolve_fused_ref, t, q,
+                        f"B1 on {label}")
     z_ref = hbmc_trisolve_fused_ref(t.cols, t.vals, t.dinv, q)
     y = sell_spmv(plan._spmv_vals, plan._spmv_cols, x)
     y_ref = sell_spmv_ref(plan._spmv_vals, plan._spmv_cols, x)
@@ -245,9 +269,9 @@ def check_kernels(plan, label: str, seed: int) -> dict:
             "sell_spmv": rel_err(y, y_ref)}
     tol = TOL[str(dt)]
     log(f"  {label:<28} n={plan.n:>8} S={t.n_steps:>3} R={t.lanes:>6} "
-        f"K={t.vals.shape[-1]:>2} {str(dt):<14} trisolve rel err "
-        f"{errs['hbmc_trisolve_fused']:.3e}  spmv rel err "
-        f"{errs['sell_spmv']:.3e}  (tol {tol:g})")
+        f"K={t.vals.shape[-1]:>2} {str(dt):<14} B1 in {t.segments.size} "
+        f"segments, bitwise the plain version and the per-step cut; spmv "
+        f"rel err {errs['sell_spmv']:.3e}  (tol {tol:g})")
     for name, err in errs.items():
         if not err <= tol:
             raise AssertionError(f"{name} disagrees with its plain version "
@@ -299,7 +323,8 @@ def check_batched_kernels(plan, label: str, seed: int,
             raise AssertionError(f"non-finite batched output on {label}")
         for j in range(nb):
             if not (torch.equal(z[:, j], hbmc_trisolve_fused(
-                        t.cols, t.vals, t.dinv, q[..., j].contiguous()))
+                        t.cols, t.vals, t.dinv, q[..., j].contiguous(),
+                        segments=t.segments))
                     and torch.equal(y[:, j], sell_spmv(
                         sv, sc, x[:, j].contiguous()))):
                 raise AssertionError(f"batched column {j} of B={nb} is not "
@@ -314,7 +339,7 @@ def check_batched_kernels(plan, label: str, seed: int,
 
 
 def check_segmented(fn, ref, t, q, label: str):
-    """A batched trisolve kernel (B3 ``fn`` on fused tables, or B6 on a
+    """A trisolve kernel (B1 / B3 ``fn`` on fused tables, or B5 / B6 on a
     sweep table ``t``) with the tables' segments: bitwise its plain version
     ``ref``, bitwise the same kernel cut into one launch per step
     (``np.arange(G)``), and one CUDA launch per segment.  Returns its
@@ -342,16 +367,17 @@ def check_segmented(fn, ref, t, q, label: str):
     return z
 
 
-def check_repeats(fn, t, fused: bool, nb: int, seed: int, label: str,
-                  reps: int = 20) -> None:
-    """``reps`` calls of a batched trisolve kernel (B3 on fused tables, B6
-    on a sweep table) on one input give one result bit for bit: a race
-    between lanes would show as a changed bit."""
+def check_repeats(fn, t, fused: bool, nb: int | None, seed: int,
+                  label: str, reps: int = 20) -> None:
+    """``reps`` calls of a trisolve kernel (B1 / B3 on fused tables, B5 /
+    B6 on a sweep table; ``nb`` None for the single-RHS ones) on one input
+    give one result bit for bit: a race between lanes would show as a
+    changed bit."""
     import numpy as np
     import torch
     n_slices = t.cols.shape[0] // (2 if fused else 1)
     q = torch.tensor(np.random.default_rng(seed).normal(
-        size=(n_slices, t.cols.shape[1], nb)),
+        size=(n_slices, t.cols.shape[1]) + (() if nb is None else (nb,))),
         device=t.cols.device).to(t.vals.dtype)
     z0 = fn(t.cols, t.vals, t.dinv, q, segments=t.segments)
     for i in range(reps - 1):
@@ -361,6 +387,47 @@ def check_repeats(fn, t, fused: bool, nb: int, seed: int, label: str,
                                  f"from the first")
     log(f"  {label}: {reps} calls in {t.segments.size} segments, bitwise "
         f"identical")
+
+
+def single_rhs_turns(fn, batched_fn, t, q, reps: int, device,
+                     label: str) -> dict[str, float]:
+    """B1 (``fn`` on fused tables ``t``) or B5 (on a sweep table), with
+    ``batched_fn`` its batched kernel, timed in turns A B C C B A:
+
+    A  ``batched_fn`` at B = 1 with the segments (B3's / B6's per-step
+       body);
+    B  ``fn`` with the segments (the prefetching single-RHS body);
+    C  ``fn`` with one launch per step (``np.arange(G)``, the per-round
+       launch pattern).
+
+    All three must give B's bits.  Prints each one's two event times, CUDA
+    launches per call and device time per call under the profiler; returns
+    the mean event ms of each."""
+    import numpy as np
+    import torch
+    per_step = np.arange(t.cols.shape[0])
+    bodies = {
+        "A": lambda: batched_fn(t.cols, t.vals, t.dinv, q[..., None],
+                                segments=t.segments).reshape(-1),
+        "B": lambda: fn(t.cols, t.vals, t.dinv, q, segments=t.segments),
+        "C": lambda: fn(t.cols, t.vals, t.dinv, q, segments=per_step),
+    }
+    want = bodies["B"]()
+    for k, f in bodies.items():
+        if not torch.equal(f(), want):
+            raise AssertionError(f"{label}: body {k} is not bitwise B")
+    times = {k: [] for k in bodies}
+    for k in list(bodies) + list(reversed(bodies)):
+        times[k].append(time_ms(bodies[k], reps, device))
+    out = {k: sum(v) / len(v) for k, v in times.items()}
+    for k, f in bodies.items():
+        log(f"  {label} {k}: {' / '.join(f'{ms:.4f}' for ms in times[k])} "
+            f"ms, {cuda_launches_per_call(f)} CUDA launches per call, device "
+            f"{fmt_ms(device_ms(f, reps, device))} ms per call under the "
+            f"profiler")
+    log(f"  {label}: B takes {out['B'] / out['A']:.3f} of A's time and "
+        f"{out['B'] / out['C']:.3f} of C's")
+    return out
 
 
 def profile_solve(plan, b, b_batched, tag: str = "") -> None:
@@ -589,7 +656,8 @@ def check_sweep_kernels(plan_idx, label: str, seed: int,
     for sweep, t in (("fwd", kp.fwd), ("bwd", kp.bwd)):
         shape = tuple(t.dinv.shape)
         q = torch.tensor(rng.normal(size=shape), device=dev).to(dt)
-        y = hbmc_trisolve(t.cols, t.vals, t.dinv, q)
+        y = check_segmented(hbmc_trisolve, hbmc_trisolve_ref, t, q,
+                            f"B5 on {label} {sweep}")
         errs = [("hbmc_trisolve", 1,
                  rel_err(y, hbmc_trisolve_ref(t.cols, t.vals, t.dinv, q)))]
         if not torch.isfinite(y).all():
@@ -604,7 +672,8 @@ def check_sweep_kernels(plan_idx, label: str, seed: int,
                 yb, hbmc_trisolve_batched_ref(t.cols, t.vals, t.dinv, qb))))
             for j in range(nb):
                 if not torch.equal(yb[:, j], hbmc_trisolve(
-                        t.cols, t.vals, t.dinv, qb[..., j].contiguous())):
+                        t.cols, t.vals, t.dinv, qb[..., j].contiguous(),
+                        segments=t.segments)):
                     raise AssertionError(f"B6 column {j} of B={nb} is not "
                                          f"bitwise B5's on {label} {sweep}")
         for name, nb, err in errs:
@@ -615,10 +684,10 @@ def check_sweep_kernels(plan_idx, label: str, seed: int,
             worst[name] = max(worst[name], err)
     log(f"  {label:<28} sweeps S={kp.fwd.dinv.shape[0]:>3} "
         f"R={kp.fwd.dinv.shape[1]:>6} K={kp.fwd.vals.shape[-1]}/"
-        f"{kp.bwd.vals.shape[-1]}: B5 rel err {worst['hbmc_trisolve']:.3e}, "
-        f"B6 B={list(sizes)} in {kp.fwd.segments.size}/"
-        f"{kp.bwd.segments.size} segments, bitwise the plain version and "
-        f"the per-step cut; every B6 column bitwise B5")
+        f"{kp.bwd.vals.shape[-1]}: B5 and B6 B={list(sizes)} in "
+        f"{kp.fwd.segments.size}/{kp.bwd.segments.size} segments, bitwise "
+        f"the plain version and the per-step cut; every B6 column bitwise "
+        f"B5")
     return worst
 
 
@@ -724,13 +793,15 @@ def index_phase(plan, a, plan_rm, plan_kw: dict, b, b8, iterations,
         raise AssertionError(f"index launch counts {counts}, expected "
                              f"{want}")
     kp = plan._precond.kernel
-    steps = kp.fwd.cols.shape[0] + kp.bwd.cols.shape[0]   # B5, per apply
+    per_apply = kp.fwd.segments.size + kp.bwd.segments.size   # B5 and B6
     want_cuda = cuda_launches_want(
-        on_card, hbmc_trisolve=steps * (res.iterations + 1),
+        on_card, hbmc_trisolve=per_apply * (res.iterations + 1),
         sell_spmv=res.iterations)
     if cuda_counts != want_cuda:
         raise AssertionError(f"index CUDA launches {cuda_counts}, expected "
                              f"{want_cuda}")
+    log(f"index solve: B5 {kp.fwd.segments.size} + {kp.bwd.segments.size} "
+        f"CUDA launches per apply")
 
     kernels.reset_launch_counts()
     rep_b = plan.solve_batched(b8)
@@ -757,7 +828,6 @@ def index_phase(plan, a, plan_rm, plan_kw: dict, b, b8, iterations,
     if counts_b != want:
         raise AssertionError(f"index batched launch counts {counts_b}, "
                              f"expected {want}")
-    per_apply = kp.fwd.segments.size + kp.bwd.segments.size
     want_cuda = cuda_launches_want(
         on_card, hbmc_trisolve_batched=per_apply * (res_b.n_steps + 1),
         sell_spmv_batched=res_b.n_steps)
@@ -930,6 +1000,8 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     check_kernels(plan_main, f"thermal2/n={a_main.shape[0]}", seed=30)
     check_batched_kernels(plan_main, f"thermal2/n={a_main.shape[0]}",
                           seed=31, sizes=(BATCH,))
+    check_repeats(hbmc_trisolve_fused, plan_main._precond.tables, True, None,
+                  35, f"B1 thermal2/n={a_main.shape[0]}")
     check_repeats(hbmc_trisolve_fused_batched, plan_main._precond.tables,
                   True, BATCH, 33,
                   f"B3 thermal2/n={a_main.shape[0]} B={BATCH}")
@@ -941,6 +1013,8 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
                         seed=32, sizes=(BATCH,))
     for sweep, tab in (("fwd", plan_idx._precond.kernel.fwd),
                        ("bwd", plan_idx._precond.kernel.bwd)):
+        check_repeats(hbmc_trisolve, tab, False, None, 36,
+                      f"B5 thermal2/n={a_main.shape[0]} {sweep}")
         check_repeats(hbmc_trisolve_batched, tab, False, BATCH, 34,
                       f"B6 thermal2/n={a_main.shape[0]} {sweep} B={BATCH}")
 
@@ -982,7 +1056,7 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     want_cuda = cuda_launches_want(
-        on_card, hbmc_trisolve_fused=2 * t.n_steps * (res.iterations + 1),
+        on_card, hbmc_trisolve_fused=t.segments.size * (res.iterations + 1),
         sell_spmv=res.iterations)
     if cuda_main != want_cuda:
         raise AssertionError(f"CUDA launches {cuda_main}, expected "
@@ -1041,7 +1115,8 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     def max_abs(got, want) -> float:
         return float((got - want).abs().max())
 
-    err_tri = max_abs(hbmc_trisolve_fused(t.cols, t.vals, t.dinv, q),
+    err_tri = max_abs(hbmc_trisolve_fused(t.cols, t.vals, t.dinv, q,
+                                          segments=t.segments),
                       hbmc_trisolve_fused_ref(t.cols, t.vals, t.dinv, q))
     y_k = sell_spmv(sv, sc, x)
     err_spmv = max_abs(y_k, sell_spmv_ref(sv, sc, x))
@@ -1074,10 +1149,11 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
                              f"on CSR: {lib_err_b:.3e}")
 
     reps = 50 if on_card else 2
-    tri_ms = time_ms(lambda: hbmc_trisolve_fused(t.cols, t.vals, t.dinv, q),
-                     reps, dev)
-    tri_launches = cuda_launches_per_call(
-        lambda: hbmc_trisolve_fused(t.cols, t.vals, t.dinv, q))
+    log("B1 in turns (ms per apply):")
+    tri_ms = single_rhs_turns(hbmc_trisolve_fused, hbmc_trisolve_fused_batched,
+                              t, q, reps, dev, "B1")["B"]
+    tri_launches = cuda_launches_per_call(lambda: hbmc_trisolve_fused(
+        t.cols, t.vals, t.dinv, q, segments=t.segments))
     tri_plain_ms = time_ms(
         lambda: hbmc_trisolve_fused_ref(t.cols, t.vals, t.dinv, q),
         max(reps // 5, 1), dev)
@@ -1160,16 +1236,17 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     qs = torch.tensor(rng.normal(size=tuple(tf.dinv.shape)), device=dev)
     qsb = torch.tensor(rng.normal(size=tuple(tf.dinv.shape) + (BATCH,)),
                        device=dev)
-    y_sw = hbmc_trisolve(tf.cols, tf.vals, tf.dinv, qs)
+    y_sw = hbmc_trisolve(tf.cols, tf.vals, tf.dinv, qs, segments=tf.segments)
     y_sw_b = hbmc_trisolve_batched(tf.cols, tf.vals, tf.dinv, qsb,
                                    segments=tf.segments)
     err_sw = max_abs(y_sw, hbmc_trisolve_ref(tf.cols, tf.vals, tf.dinv, qs))
     err_sw_b = max_abs(y_sw_b, hbmc_trisolve_batched_ref(tf.cols, tf.vals,
                                                          tf.dinv, qsb))
-    sw_ms = time_ms(lambda: hbmc_trisolve(tf.cols, tf.vals, tf.dinv, qs),
-                    reps, dev)
-    sw_launches = cuda_launches_per_call(
-        lambda: hbmc_trisolve(tf.cols, tf.vals, tf.dinv, qs))
+    log("B5 in turns (ms per sweep, forward table):")
+    sw_ms = single_rhs_turns(hbmc_trisolve, hbmc_trisolve_batched, tf, qs,
+                             reps, dev, "B5")["B"]
+    sw_launches = cuda_launches_per_call(lambda: hbmc_trisolve(
+        tf.cols, tf.vals, tf.dinv, qs, segments=tf.segments))
     sw_plain_ms = time_ms(
         lambda: hbmc_trisolve_ref(tf.cols, tf.vals, tf.dinv, qs),
         max(reps // 5, 1), dev)

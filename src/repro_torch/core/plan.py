@@ -394,6 +394,14 @@ class SolverPlan:
                                        device=self.device)
         self._spmv_n = n
 
+    def _step_tables(self) -> list:
+        """The preconditioner's device step tables: the fused table of the
+        round-major layout, or the index layout's forward and backward
+        sweeps."""
+        if self.layout == "round_major":
+            return [self._precond.tables]
+        return [self._precond.kernel.fwd, self._precond.kernel.bwd]
+
     def _build_operators(self, l_bar) -> None:
         """Pack the factor + the SpMV operand in the plan's layout and
         format, and move them to the device.  The index layout has no
@@ -472,8 +480,10 @@ class SolverPlan:
 
         Re-runs the value-dependent pipeline (permute values, IC(0) numeric
         phase over the cached structure, repack, transfer) while ordering,
-        rounds, layout and the IC(0) symbolic analysis stay cached.  Raises
-        ValueError if ``a_new``'s sparsity pattern differs.
+        rounds, layout and the IC(0) symbolic analysis stay cached, and so
+        do the step tables' barrier-free segments where the repacked
+        ``cols`` are unchanged.  Raises ValueError if ``a_new``'s sparsity
+        pattern differs.
         """
         if self._sysd is None:
             raise ValueError("a plan made by from_arrays has no setup state "
@@ -493,7 +503,11 @@ class SolverPlan:
         l_bar = self._factor(a_bar)
         self._sysd.a_bar = a_bar
         t1 = time.perf_counter()
+        old_tables = self._step_tables()
         self._build_operators(l_bar)
+        for was, now in zip(old_tables, self._step_tables()):
+            if "segments" in vars(was) and torch.equal(was.cols, now.cols):
+                now.segments = was.segments
         t2 = time.perf_counter()
         self.setup_count += 1
         self.refactor_count += 1

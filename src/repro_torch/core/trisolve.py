@@ -137,7 +137,7 @@ class DeviceFusedTables:
     Row ``g`` of each tensor drives fused step ``g``: forward rounds for
     ``g < S``, backward rounds (backward execution order) for ``g >= S``.
     ``segments`` are the start steps of the table's barrier-free segments,
-    for the batched kernel, which launches once per segment.
+    for the trisolve kernels, which launch once per segment.
     """
     cols: torch.Tensor   # (2S, R, K) int32 -- fwd-round-major gather positions
     vals: torch.Tensor   # (2S, R, K)
@@ -146,9 +146,10 @@ class DeviceFusedTables:
     @functools.cached_property
     def segments(self) -> np.ndarray:
         """(n_segments,) int32 on the host, ``barrier_segments`` of
-        ``cols``: computed at first use (the first batched apply) and kept,
-        so a plan that never solves batched never pays for it (about 0.2 s
-        at the 1M plan's tables, ``chip_smoke.py`` phase 3)."""
+        ``cols``: computed at first use (the first apply) and kept, so a
+        plan that never solves never pays for it (about 0.2 s at the 1M
+        plan's tables, ``chip_smoke.py`` phase 3); ``SolverPlan.refactor``
+        carries them over while ``cols`` is unchanged."""
         return barrier_segments(self.cols.cpu().numpy(), fused=True)
 
     @property
@@ -177,7 +178,8 @@ class DeviceFusedTables:
 
 def fused_solve(tables: DeviceFusedTables, q: torch.Tensor) -> torch.Tensor:
     """z = (L L^T)^{-1} q, round-major in and out.  q: (S, R) -> (S*R,)."""
-    return hbmc_trisolve_fused(tables.cols, tables.vals, tables.dinv, q)
+    return hbmc_trisolve_fused(tables.cols, tables.vals, tables.dinv, q,
+                               segments=tables.segments)
 
 
 def fused_solve_batched(tables: DeviceFusedTables,

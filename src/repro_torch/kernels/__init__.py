@@ -12,7 +12,7 @@ replaces the Pallas ``sell_spmv`` and ``sell_spmv_batched``).
 Each wrapper runs its CUDA kernel for a CUDA tensor and its plain version
 (``ref.py``) for a CPU tensor, and counts its calls that launched
 (``launch_counts``) and the CUDA launches those calls issued
-(``cuda_launch_counts``).  The batched trisolve kernels launch once per
+(``cuda_launch_counts``).  The trisolve kernels launch once per
 barrier-free segment of their table (``segments.barrier_segments``).
 
 ``ops`` (imported on its own, since it reads ``repro_torch.core.sell``)
@@ -59,8 +59,8 @@ def launch_counts() -> dict[str, int]:
 
 def cuda_launch_counts() -> dict[str, int]:
     """CUDA launches per wrapper since the last reset, as the C entry points
-    report them: one per step of B1 / B5, one per segment of B3 / B6, one
-    per call of B2 / B4."""
+    report them: one per segment of the trisolve kernels (B1, B3, B5,
+    B6), one per call of B2 / B4."""
     return {name: getattr(mod, attr) for name, (mod, attr) in
             _CUDA_COUNTED.items()}
 

@@ -19,27 +19,12 @@
 //     the y value the same thread overwrites, read before the store (every
 //     slice was written by the forward steps).
 //
-// Single right-hand side, one launch per step (B1, B5).
-//   fused_step replaces the Pallas kernel repro/kernels/hbmc_trisolve.py
-//   hbmc_trisolve_fused (body _fused_kernel); sweep_step replaces
-//   hbmc_trisolve (body _trisolve_kernel).  The TPU ran the steps as one
-//   sequential grid; here each step is one launch over the R lanes of its
-//   round, one thread per lane, and the kernel boundary is the round
-//   barrier.  Bound: bytes -- the tables once, q once, y written once; at
-//   the 1M plan (S=32, R=32768, K=4, f64) 134 MB per fused apply (0.040 ms
-//   at 3.35 TB/s) and 75 MB per sweep (0.023 ms).  Their 64 / 32 dependent
-//   launches, not the bytes, set their time.
-//
-// B right-hand sides, one launch per barrier-free segment (B3, B6).
-//   fused_segment_batched replaces hbmc_trisolve_fused_batched (body
-//   _fused_batched_kernel); sweep_segment_batched replaces
-//   hbmc_trisolve_batched (body _trisolve_batched_kernel); both run
-//   run_segment.  y is (S*R, B), row-major.  One thread per (lane, column),
-//   the column fastest, so the B threads of a lane share each table load
-//   and their gathers y[c*B + b] hit B contiguous values.  Each thread runs
-//   the steps [g0, g1) of one segment in order, on the same lane at every
-//   step; the host issues one launch per segment (kernels/segments.py), and
-//   the kernel boundary is the only barrier.
+// Every kernel here runs one barrier-free segment of its table per launch:
+// one thread per (lane, column) runs the steps [g0, g1) of the segment in
+// order, on the same lane at every step, and the host issues one launch
+// per segment (kernels/segments.py), so the kernel boundary is the only
+// barrier.  The cut np.arange(G) gives one launch per step, the round
+// barrier of the reference's sequential grid.
 //
 //   Why the boundary is enough.  The segments are cut so that within one,
 //   a thread reads only positions of its own lane (written by itself, in
@@ -48,24 +33,56 @@
 //   another lane reads in the same segment.  So no grid barrier, fence or
 //   cooperative launch is needed, and every (lane, column) does exactly the
 //   step-major arithmetic: the result is bitwise the plain version's, and
-//   column j is bitwise the single-RHS kernel's on column j.  y is written
-//   in the same launch that reads it, so it is never read through the
-//   read-only path (no __ldg, no const __restrict__ on y).
+//   column j of a batched call is bitwise the single-RHS kernel's on column
+//   j.  y is written in the same launch that reads it, so it is never read
+//   through the read-only path (no __ldg, no const __restrict__ on y).
+//   HBMC gives one segment per color boundary: at the 1M plan (S=32,
+//   R=32768, K=4, two colors) 3 launches per fused apply and 2 per sweep,
+//   against 64 and 32 per round.
+//
+// Single right-hand side (B1, B5): segment_single runs run_segment_single.
+//   It replaces the Pallas kernels repro/kernels/hbmc_trisolve.py
+//   hbmc_trisolve_fused (body _fused_kernel, FUSED) and hbmc_trisolve
+//   (body _trisolve_kernel).  Bound: bytes -- the tables once, q once, y
+//   written once; at the 1M plan in f64 134 MB per fused apply (0.040 ms at
+//   3.35 TB/s) and 75 MB per sweep (0.023 ms).  One RHS gives only R =
+//   32,768 threads, each running a chain of 16-32 dependent steps, so a
+//   step costs the latency of its table loads and of its gathers, not
+//   their bytes.  Two things shorten the chain:
+//   * before the gathers of step g a thread loads step g+1's read-only
+//     operands into registers (the first min(K, KP) entries of cols and
+//     vals, dinv, and q for a forward step), so the DRAM latency of the
+//     tables overlaps the current step's gathers and store.  Only
+//     read-only operands move; every read and write of y keeps its place
+//     in program order, so the segment argument above is unchanged.
+//     Entries past KP load in step, in k order;
+//   * those operands are read once per apply and are loaded evict-first
+//     (__ldcs), so the tables streaming through L2 do not push out the
+//     state y (8.4 MB), which the gathers read back.
+//   Loading two or three steps ahead, L2-only or evict-last accesses to y,
+//   and 64 or 256 threads a block instead of 128 gave no further gain in
+//   design runs (PERF.md, section 6).
+//
+// B right-hand sides (B3, B6): fused_segment_batched replaces
+//   hbmc_trisolve_fused_batched (body _fused_batched_kernel);
+//   sweep_segment_batched replaces hbmc_trisolve_batched (body
+//   _trisolve_batched_kernel); both run run_segment.  y is (S*R, B),
+//   row-major.  One thread per (lane, column), the column fastest, so the B
+//   threads of a lane share each table load and their gathers y[c*B + b]
+//   hit B contiguous values.
 //
 //   Bound: bytes -- the tables once, q once and y written once: at the 1M
 //   plan with B=8 in f64 about 252 MB per fused apply (0.075 ms at
-//   3.35 TB/s) and 193 MB per sweep (0.058 ms).  HBMC gives one segment per
-//   color boundary: 3 launches per fused apply and 2 per sweep at the 1M
-//   plan, against 64 and 32 per round.  What is left is memory traffic the
-//   bound does not count: the gathers re-read y (67 MB at B=8, beside a
-//   50 MB L2), about one 64-byte row per lane and step from another lane's
-//   block, written a color earlier and mostly gone from L2 by then.  Loading
-//   the next step's table entries into registers ahead of the current
-//   step's gathers, staging them in shared memory by cp.async.bulk on an
-//   mbarrier ring, column pairs, streaming loads and a register cache of the
-//   thread's last row all gave the same time to 0.5% (PERF.md): the kernel
-//   is held by DRAM traffic, not by its instruction stream, so its body is
-//   the plain per-step loop.
+//   3.35 TB/s) and 193 MB per sweep (0.058 ms).  What is left is memory
+//   traffic the bound does not count: the gathers re-read y (67 MB at B=8,
+//   beside a 50 MB L2), about one 64-byte row per lane and step from
+//   another lane's block, written a color earlier and mostly gone from L2
+//   by then.  Loading the next step's table entries into registers ahead
+//   of the current step's gathers, staging them in shared memory by
+//   cp.async.bulk on an mbarrier ring, column pairs, streaming loads and a
+//   register cache of the thread's last row all gave the same time to 0.5%
+//   (PERF.md): at B=8 the kernel is held by DRAM traffic, not by its
+//   instruction stream, so its body is the plain per-step loop.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -73,23 +90,33 @@
 
 namespace {
 
-// Sum over k of vals[j] * y[c[j]] for one (lane, column): the gather is
-// masked (c in [-m, 0) wraps; c outside [-m, m), or at or after lim, reads
-// 0), each product is rounded before it is added, k = 0..K-1 in order.  y
-// holds nb columns, row-major; y is written by earlier steps of the same
-// sweep, so it is read with plain loads, not the read-only path.
+// Single RHS: entries of a step's table row prefetched into registers
+// (the rest, up to K, load in step).
+constexpr int KP = 8;
+
+// acc + vals_j * y[c_j] for one entry: the gather is masked (c in [-m, 0)
+// wraps; c outside [-m, m), or at or after lim, reads 0) and the product is
+// rounded before it is added.  y holds nb columns, row-major; it is written
+// by earlier steps of the same sweep, so it is read with plain loads, not
+// the read-only path.
+template <typename T>
+__device__ __forceinline__ T add_term(T acc, int32_t c, T v, const T* y,
+                                      int64_t m, int64_t lim, int nb, int b) {
+  int64_t cj = c;
+  if (cj < 0) cj += m;
+  const T yj = (cj >= 0 && cj < lim) ? y[cj * nb + b] : T(0);
+  return add_rn(acc, mul_rn(v, yj));
+}
+
+// acc plus the entries j = j0..k-1 of a row, in order, for one (lane,
+// column).
 template <typename T>
 __device__ __forceinline__ T gather_dot(const int32_t* __restrict__ c,
                                         const T* __restrict__ v, const T* y,
-                                        int k, int64_t m, int64_t lim, int nb,
-                                        int b) {
-  T acc = T(0);
-  for (int j = 0; j < k; ++j) {
-    int64_t cj = c[j];
-    if (cj < 0) cj += m;
-    const T yj = (cj >= 0 && cj < lim) ? y[cj * nb + b] : T(0);
-    acc = add_rn(acc, mul_rn(v[j], yj));
-  }
+                                        int j0, int k, int64_t m, int64_t lim,
+                                        int nb, int b, T acc) {
+  for (int j = j0; j < k; ++j)
+    acc = add_term(acc, c[j], v[j], y, m, lim, nb, b);
   return acc;
 }
 
@@ -106,37 +133,12 @@ __device__ __forceinline__ void run_step(const int32_t* __restrict__ cols,
   const int64_t m = (int64_t)s * r;
   const int64_t row = (int64_t)g * r + lane;
   const bool fwd = !FUSED || g < s;
-  const T acc = gather_dot(cols + row * k, vals + row * k, y, k, m,
-                           fwd ? (int64_t)g * r : m, nb, b);
+  const T acc = gather_dot(cols + row * k, vals + row * k, y, 0, k, m,
+                           fwd ? (int64_t)g * r : m, nb, b, T(0));
   const int64_t dest =
       ((int64_t)(fwd ? g : 2 * s - 1 - g) * r + lane) * nb + b;
   const T q_cur = fwd ? q[row * nb + b] : y[dest];
   y[dest] = (q_cur - acc) * dinv[row];
-}
-
-template <typename T>
-__global__ void fused_step(const int32_t* __restrict__ cols,
-                           const T* __restrict__ vals,
-                           const T* __restrict__ dinv,
-                           const T* __restrict__ q, T* y, int g, int s,
-                           int r, int k) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= r) return;
-  run_step<T, true>(cols, vals, dinv, q, y, g, s, r, k, 1, lane, 0);
-}
-
-// One round g of a single sweep (B5): lane t of round g writes y[g*R + t]
-// from q at the same position.  The tables hold S rounds, and round g
-// gathers only from slices 0..g-1, so no launch reads what it writes.
-template <typename T>
-__global__ void sweep_step(const int32_t* __restrict__ cols,
-                           const T* __restrict__ vals,
-                           const T* __restrict__ dinv,
-                           const T* __restrict__ q, T* y, int g, int s,
-                           int r, int k) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= r) return;
-  run_step<T, false>(cols, vals, dinv, q, y, g, s, r, k, 1, lane, 0);
 }
 
 // Steps [g0, g1) of a fused (FUSED) or single-sweep table for nb columns:
@@ -155,6 +157,92 @@ __device__ __forceinline__ void run_segment(const int32_t* __restrict__ cols,
   const int b = (int)(t - (int64_t)lane * nb);
   for (int g = g0; g < g1; ++g)
     run_step<T, FUSED>(cols, vals, dinv, q, y, g, s, r, k, nb, lane, b);
+}
+
+// The read-only operands of one step of one lane (single RHS): the first
+// min(K, KP) entries of its row, dinv, and q for a forward step.  They
+// are read once per apply, so they are loaded evict-first (__ldcs): the
+// 134 MB they stream through the 50 MB L2 at the 1M plan then does not
+// push out the state y, which the gathers read back.
+template <typename T>
+struct StepOperands {
+  int32_t c[KP];
+  T v[KP];
+  T d, q;
+};
+
+template <typename T, bool FUSED>
+__device__ __forceinline__ void load_operands(
+    StepOperands<T>& o, const int32_t* __restrict__ cols,
+    const T* __restrict__ vals, const T* __restrict__ dinv,
+    const T* __restrict__ q, int g, int s, int r, int k, int lane) {
+  const int64_t row = (int64_t)g * r + lane;
+#pragma unroll
+  for (int j = 0; j < KP; ++j) {
+    if (j < k) {
+      o.c[j] = __ldcs(cols + row * k + j);
+      o.v[j] = __ldcs(vals + row * k + j);
+    }
+  }
+  o.d = __ldcs(dinv + row);
+  if (!FUSED || g < s) o.q = __ldcs(q + row);
+}
+
+// Step g of a fused (FUSED) or single-sweep table for one RHS, lane `lane`,
+// from its prefetched operands o: run_step's arithmetic and accesses to y.
+template <typename T, bool FUSED>
+__device__ __forceinline__ void run_step_single(
+    const StepOperands<T>& o, const int32_t* __restrict__ cols,
+    const T* __restrict__ vals, T* y, int g, int s, int r, int k,
+    int lane) {
+  const int64_t m = (int64_t)s * r;
+  const int64_t row = (int64_t)g * r + lane;
+  const bool fwd = !FUSED || g < s;
+  const int64_t lim = fwd ? (int64_t)g * r : m;
+  T acc = T(0);
+#pragma unroll
+  for (int j = 0; j < KP; ++j)
+    if (j < k) acc = add_term(acc, o.c[j], o.v[j], y, m, lim, 1, 0);
+  if (k > KP)
+    acc = gather_dot(cols + row * k, vals + row * k, y, KP, k, m, lim, 1, 0,
+                     acc);
+  const int64_t dest = (int64_t)(fwd ? g : 2 * s - 1 - g) * r + lane;
+  const T q_cur = fwd ? o.q : y[dest];
+  y[dest] = (q_cur - acc) * o.d;
+}
+
+// Steps [g0, g1) of a fused (FUSED) or single-sweep table for one RHS, one
+// thread per lane.  The read-only operands of step g+1 are loaded before
+// the gathers of step g; the arithmetic, and the order of every access to
+// y, are run_step's.
+template <typename T, bool FUSED>
+__device__ __forceinline__ void run_segment_single(
+    const int32_t* __restrict__ cols, const T* __restrict__ vals,
+    const T* __restrict__ dinv, const T* __restrict__ q, T* y, int g0,
+    int g1, int s, int r, int k) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= r) return;
+  StepOperands<T> next = {};   // entries past K stay 0, never read
+  load_operands<T, FUSED>(next, cols, vals, dinv, q, g0, s, r, k, lane);
+  for (int g = g0; g < g1; ++g) {
+    const StepOperands<T> cur = next;
+    if (g + 1 < g1)
+      load_operands<T, FUSED>(next, cols, vals, dinv, q, g + 1, s, r, k,
+                              lane);
+    run_step_single<T, FUSED>(cur, cols, vals, y, g, s, r, k, lane);
+  }
+}
+
+// B1 (FUSED: a segment of the fused table, 2S steps, backward steps
+// g >= S) and B5 (a segment of one sweep's table, S steps, step g writes
+// slice g).
+template <typename T, bool FUSED>
+__global__ void segment_single(const int32_t* __restrict__ cols,
+                               const T* __restrict__ vals,
+                               const T* __restrict__ dinv,
+                               const T* __restrict__ q, T* y, int g0, int g1,
+                               int s, int r, int k) {
+  run_segment_single<T, FUSED>(cols, vals, dinv, q, y, g0, g1, s, r, k);
 }
 
 // B3: a segment of the fused table (2S steps, backward steps g >= S).
@@ -179,81 +267,89 @@ __global__ void sweep_segment_batched(const int32_t* __restrict__ cols,
 
 // One launch per segment: segs holds the nseg ascending start steps on the
 // host (segs[0] == 0), segment i runs [segs[i], segs[i+1]) (the last up to
-// the table's end).  *launched counts the launches issued.
+// n_steps); launch(g0, g1) issues its kernel.  *launched counts the
+// launches issued.
+template <typename Launch>
+int for_each_segment(const int32_t* segs, int nseg, int n_steps,
+                     int* launched, Launch launch) {
+  if (nseg < 1 || segs[0] != 0) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < nseg; ++i) {
+    const int g0 = segs[i];
+    const int g1 = i + 1 < nseg ? segs[i + 1] : n_steps;
+    if (g1 <= g0 || g1 > n_steps) return (int)cudaErrorInvalidValue;
+    launch(g0, g1);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    ++*launched;
+  }
+  return (int)cudaSuccess;
+}
+
+// B3 / B6: 256 threads a block, one per (lane, column).
 template <typename T, bool FUSED>
 int launch_segments(const int32_t* cols, const T* vals, const T* dinv,
                     const T* q, T* y, int s, int r, int k, int nb,
                     const int32_t* segs, int nseg, cudaStream_t st,
                     int* launched) {
-  const int n_steps = FUSED ? 2 * s : s;
-  if (nseg < 1 || segs[0] != 0) return (int)cudaErrorInvalidValue;
   const int threads = 256;
   const unsigned blocks =
       (unsigned)(((int64_t)r * nb + threads - 1) / threads);
-  for (int i = 0; i < nseg; ++i) {
-    const int g0 = segs[i];
-    const int g1 = i + 1 < nseg ? segs[i + 1] : n_steps;
-    if (g1 <= g0 || g1 > n_steps) return (int)cudaErrorInvalidValue;
-    if (FUSED)
-      fused_segment_batched<T><<<blocks, threads, 0, st>>>(
-          cols, vals, dinv, q, y, g0, g1, s, r, k, nb);
-    else
-      sweep_segment_batched<T><<<blocks, threads, 0, st>>>(
-          cols, vals, dinv, q, y, g0, g1, s, r, k, nb);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    ++*launched;
-  }
-  return (int)cudaSuccess;
+  return for_each_segment(
+      segs, nseg, FUSED ? 2 * s : s, launched, [&](int g0, int g1) {
+        if (FUSED)
+          fused_segment_batched<T><<<blocks, threads, 0, st>>>(
+              cols, vals, dinv, q, y, g0, g1, s, r, k, nb);
+        else
+          sweep_segment_batched<T><<<blocks, threads, 0, st>>>(
+              cols, vals, dinv, q, y, g0, g1, s, r, k, nb);
+      });
 }
 
-// One launch per step; *launched counts the launches issued.
+// B1 / B5: 128 threads a block, one per lane, so the 1M plan's 32,768
+// lanes make 256 blocks over the 132 SMs.
 template <typename T, bool FUSED>
-int launch_steps(const int32_t* cols, const T* vals, const T* dinv,
-                 const T* q, T* y, int s, int r, int k, cudaStream_t st,
-                 int* launched) {
-  const int threads = 256;
-  const int blocks = (r + threads - 1) / threads;
-  for (int g = 0; g < (FUSED ? 2 * s : s); ++g) {
-    if (FUSED)
-      fused_step<T><<<blocks, threads, 0, st>>>(cols, vals, dinv, q, y, g,
-                                                s, r, k);
-    else
-      sweep_step<T><<<blocks, threads, 0, st>>>(cols, vals, dinv, q, y, g,
-                                                s, r, k);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    ++*launched;
-  }
-  return (int)cudaSuccess;
+int launch_single(const int32_t* cols, const T* vals, const T* dinv,
+                  const T* q, T* y, int s, int r, int k, const int32_t* segs,
+                  int nseg, cudaStream_t st, int* launched) {
+  const int threads = 128;
+  const unsigned blocks = (unsigned)((r + threads - 1) / threads);
+  return for_each_segment(
+      segs, nseg, FUSED ? 2 * s : s, launched, [&](int g0, int g1) {
+        segment_single<T, FUSED><<<blocks, threads, 0, st>>>(
+            cols, vals, dinv, q, y, g0, g1, s, r, k);
+      });
 }
 
 }  // namespace
 
 // Every entry point: y (S*R[, B]) may hold any values on entry and holds
-// the result on return (stream-ordered); *launched is incremented once per
-// kernel launch issued; the return value is the first CUDA error.
+// the result on return (stream-ordered); segs is a host array of the nseg
+// ascending segment starts (segs[0] == 0), one launch per segment;
+// *launched is incremented once per kernel launch issued; the return value
+// is the first CUDA error.
 
 extern "C" int hbmc_trisolve_fused_f64(const void* cols, const void* vals,
                                        const void* dinv, const void* q,
                                        void* y, int s, int r, int k,
+                                       const void* segs, int nseg,
                                        void* stream, int* launched) {
-  return launch_steps<double, true>(
+  return launch_single<double, true>(
       (const int32_t*)cols, (const double*)vals, (const double*)dinv,
-      (const double*)q, (double*)y, s, r, k, (cudaStream_t)stream, launched);
+      (const double*)q, (double*)y, s, r, k, (const int32_t*)segs, nseg,
+      (cudaStream_t)stream, launched);
 }
 
 extern "C" int hbmc_trisolve_fused_f32(const void* cols, const void* vals,
                                        const void* dinv, const void* q,
                                        void* y, int s, int r, int k,
+                                       const void* segs, int nseg,
                                        void* stream, int* launched) {
-  return launch_steps<float, true>(
+  return launch_single<float, true>(
       (const int32_t*)cols, (const float*)vals, (const float*)dinv,
-      (const float*)q, (float*)y, s, r, k, (cudaStream_t)stream, launched);
+      (const float*)q, (float*)y, s, r, k, (const int32_t*)segs, nseg,
+      (cudaStream_t)stream, launched);
 }
 
-// segs is a host array of the nseg ascending segment starts (segs[0] ==
-// 0); one launch per segment.
 extern "C" int hbmc_trisolve_fused_batched_f64(
     const void* cols, const void* vals, const void* dinv, const void* q,
     void* y, int s, int r, int k, int nb, const void* segs, int nseg,
@@ -276,20 +372,22 @@ extern "C" int hbmc_trisolve_fused_batched_f32(
 
 extern "C" int hbmc_trisolve_f64(const void* cols, const void* vals,
                                  const void* dinv, const void* q, void* y,
-                                 int s, int r, int k, void* stream,
-                                 int* launched) {
-  return launch_steps<double, false>(
+                                 int s, int r, int k, const void* segs,
+                                 int nseg, void* stream, int* launched) {
+  return launch_single<double, false>(
       (const int32_t*)cols, (const double*)vals, (const double*)dinv,
-      (const double*)q, (double*)y, s, r, k, (cudaStream_t)stream, launched);
+      (const double*)q, (double*)y, s, r, k, (const int32_t*)segs, nseg,
+      (cudaStream_t)stream, launched);
 }
 
 extern "C" int hbmc_trisolve_f32(const void* cols, const void* vals,
                                  const void* dinv, const void* q, void* y,
-                                 int s, int r, int k, void* stream,
-                                 int* launched) {
-  return launch_steps<float, false>(
+                                 int s, int r, int k, const void* segs,
+                                 int nseg, void* stream, int* launched) {
+  return launch_single<float, false>(
       (const int32_t*)cols, (const float*)vals, (const float*)dinv,
-      (const float*)q, (float*)y, s, r, k, (cudaStream_t)stream, launched);
+      (const float*)q, (float*)y, s, r, k, (const int32_t*)segs, nseg,
+      (cudaStream_t)stream, launched);
 }
 
 extern "C" int hbmc_trisolve_batched_f64(const void* cols, const void* vals,

@@ -10,11 +10,14 @@ Ports of the four Pallas kernels of ``repro.kernels.hbmc_trisolve``:
   forward or backward solve.
 
 For a CUDA tensor each wrapper launches its hand-written kernel in
-``csrc/hbmc_trisolve.cu`` (see the source for the design and bound): the
-single-RHS kernels one launch per step, the kernel boundary being the round
-barrier; the batched kernels one launch per barrier-free segment of the
-table (``segments.barrier_segments``).  For a CPU tensor it runs the plain
-PyTorch version in ``ref``, whose result is the step-major one.
+``csrc/hbmc_trisolve.cu`` (see the source for the design and bound) once
+per barrier-free segment of its table (``segments.barrier_segments``), the
+kernel boundary being the only barrier; ``segments=np.arange(G)`` gives one
+launch per step, the reference's round barrier.  The single-RHS kernels
+load the next step's table entries ahead of the current step's gathers;
+the batched ones run the plain per-step loop.  For a CPU tensor each
+wrapper runs the plain PyTorch version in ``ref``, whose result is the
+step-major one, and ignores ``segments``.
 
 ``launches`` / ``batched_launches`` count the wrapper calls that launched
 the fused single-RHS / batched CUDA kernel, ``sweep_launches`` /
@@ -22,7 +25,7 @@ the fused single-RHS / batched CUDA kernel, ``sweep_launches`` /
 counters beside them (``cuda_launches``, ``batched_cuda_launches``,
 ``sweep_cuda_launches``, ``sweep_batched_cuda_launches``) count the CUDA
 launches those calls issued, as the C entry points report them: one per
-step for the single-RHS kernels, one per segment for the batched ones.
+segment.
 """
 from __future__ import annotations
 
@@ -69,12 +72,13 @@ def _check(cols, vals, dinv, q) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _run(entry: str, cols, vals, dinv, q, *extra) -> tuple[torch.Tensor,
-                                                            int]:
-    """Check the operands and launch ``entry`` (``extra`` are its arguments
-    after the shapes) into a new (S*R[, B]) buffer, which the kernels need
-    no zeros in; returns it and the number of CUDA launches."""
+def _run(entry: str, cols, vals, dinv, q, segments,
+         fused: bool) -> tuple[torch.Tensor, int]:
+    """Check the operands and ``segments`` (``_segments``) and launch
+    ``entry`` once per segment into a new (S*R[, B]) buffer, which the
+    kernels need no zeros in; returns it and the number of CUDA launches."""
     _check(cols, vals, dinv, q)
+    seg = _segments(segments, cols, fused)
     s_, r_, k_ = q.shape[0], q.shape[1], cols.shape[2]
     shape = (s_ * r_,) + tuple(q.shape[2:])
     y = torch.empty(shape, dtype=vals.dtype, device=q.device)
@@ -83,7 +87,8 @@ def _run(entry: str, cols, vals, dinv, q, *extra) -> tuple[torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     n = _build.call(f"{entry}_{_SUFFIX[vals.dtype]}", cols.data_ptr(),
                     vals.data_ptr(), dinv.data_ptr(), q.data_ptr(),
-                    y.data_ptr(), s_, r_, k_, *q.shape[2:], *extra, stream)
+                    y.data_ptr(), s_, r_, k_, *q.shape[2:], seg.ctypes.data,
+                    int(seg.size), stream)
     return y, n
 
 
@@ -102,19 +107,29 @@ def _segments(segments, cols: torch.Tensor, fused: bool) -> np.ndarray:
 
 
 def hbmc_trisolve_fused(cols: torch.Tensor, vals: torch.Tensor,
-                        dinv: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+                        dinv: torch.Tensor, q: torch.Tensor,
+                        segments=None) -> torch.Tensor:
     """z = (L L^T)^{-1} q in round-major coordinates.
 
     Args:
       cols: (2S, R, K) int32 -- forward round-major gather positions; rows
         0..S-1 drive the forward rounds, S..2S-1 the backward rounds in
         backward execution order (``sell.fuse_round_major``); ``S*R`` marks
-        a hole and reads 0.  Step g never reads the slice it writes (lanes of
-        one round are independent); every packed table satisfies this, and
-        the CUDA kernel relies on it.
+        a hole and reads 0.  Step g never reads another lane's entry of the
+        slice it writes (lanes of one round are independent); every packed
+        table satisfies this, and the CUDA kernel relies on it.
       vals: (2S, R, K) -- off-diagonal values (0 on padding).
       dinv: (2S, R) -- inverse diagonal (0 on padding lanes).
       q:    (S, R) -- right-hand side in round-major layout.
+      segments: int32 start steps of the barrier-free segments of ``cols``
+        (``segments.barrier_segments(cols, fused=True)``; the plan's tables
+        carry them).  On the card each segment is one launch; any cut finer
+        than the computed one (``np.arange(2S)``: one launch per step) gives
+        the same bits.  None computes them from ``cols`` on the host: a
+        device-to-host copy of ``cols`` and about 0.2 s at the 1M plan's
+        tables, per call, so the solve paths always pass them.  The plain
+        (CPU) version ignores ``segments``: its result is the step-major
+        one.
 
     Returns:
       z: (S*R,) solution in round-major layout (holes stay 0).
@@ -126,7 +141,7 @@ def hbmc_trisolve_fused(cols: torch.Tensor, vals: torch.Tensor,
                          f"{(s2 // 2, r_)}")
     if runs_plain(q):
         return hbmc_trisolve_fused_ref(cols, vals, dinv, q)
-    y, n = _run("hbmc_trisolve_fused", cols, vals, dinv, q)
+    y, n = _run("hbmc_trisolve_fused", cols, vals, dinv, q, segments, True)
     launches += 1
     cuda_launches += n
     return y
@@ -139,17 +154,8 @@ def hbmc_trisolve_fused_batched(cols: torch.Tensor, vals: torch.Tensor,
 
     The B right-hand sides share every load of cols/vals/dinv; column j of
     the result is bitwise equal to ``hbmc_trisolve_fused`` on ``q[..., j]``
-    (on the card and on the CPU alike).  Any B >= 1.
-
-    ``segments``: int32 start steps of the barrier-free segments of
-    ``cols`` (``segments.barrier_segments(cols, fused=True)``; the
-    plan's tables carry them).  On the card each segment is one launch;
-    any cut finer than the computed one (``np.arange(2S)``: one launch per
-    step) gives the same bits.  None computes them from ``cols`` on the
-    host: a device-to-host copy of ``cols`` and about 0.2 s at the 1M
-    plan's tables, per call, so the solve paths always pass them.  The
-    plain (CPU) version ignores ``segments``: its result is the step-major
-    one.
+    (on the card and on the CPU alike).  Any B >= 1.  ``segments`` as for
+    ``hbmc_trisolve_fused``.
     """
     global batched_launches, batched_cuda_launches
     s2, r_, _ = cols.shape
@@ -158,25 +164,27 @@ def hbmc_trisolve_fused_batched(cols: torch.Tensor, vals: torch.Tensor,
                          "(B,)")
     if runs_plain(q):
         return hbmc_trisolve_fused_batched_ref(cols, vals, dinv, q)
-    seg = _segments(segments, cols, True)
     y, n = _run("hbmc_trisolve_fused_batched", cols, vals, dinv, q,
-                seg.ctypes.data, int(seg.size))
+                segments, True)
     batched_launches += 1
     batched_cuda_launches += n
     return y
 
 
 def hbmc_trisolve(cols: torch.Tensor, vals: torch.Tensor, dinv: torch.Tensor,
-                  q: torch.Tensor) -> torch.Tensor:
+                  q: torch.Tensor, segments=None) -> torch.Tensor:
     """One round-major triangular sweep (``sell.to_round_major`` tables).
 
     Args:
       cols: (S, R, K) int32 -- round-major gather positions; step s reads
-        only slices 0..s-1 (every packed table satisfies this, and the CUDA
-        kernel relies on it); ``S*R`` marks a hole and reads 0.
+        only slices 0..s-1 (every packed table satisfies this; a read of a
+        later slice reads the zero the state starts from); ``S*R`` marks a
+        hole and reads 0.
       vals: (S, R, K) -- off-diagonal values (0 on padding).
       dinv: (S, R) -- inverse diagonal (0 on padding lanes).
       q:    (S, R) -- right-hand side in round-major layout.
+      segments: as for ``hbmc_trisolve_fused``, of the sweep table
+        (``barrier_segments(cols, fused=False)``).
 
     Returns:
       y: (S*R,) solution in round-major layout.
@@ -187,7 +195,7 @@ def hbmc_trisolve(cols: torch.Tensor, vals: torch.Tensor, dinv: torch.Tensor,
                          f"{tuple(cols.shape[:2])}")
     if runs_plain(q):
         return hbmc_trisolve_ref(cols, vals, dinv, q)
-    y, n = _run("hbmc_trisolve", cols, vals, dinv, q)
+    y, n = _run("hbmc_trisolve", cols, vals, dinv, q, segments, False)
     sweep_launches += 1
     sweep_cuda_launches += n
     return y
@@ -201,8 +209,7 @@ def hbmc_trisolve_batched(cols: torch.Tensor, vals: torch.Tensor,
     The B right-hand sides share every load of cols/vals/dinv; column j of
     the result is bitwise equal to ``hbmc_trisolve`` on ``q[..., j]`` (on
     the card and on the CPU alike).  Any B >= 1.  ``segments`` as for
-    ``hbmc_trisolve_fused_batched``, of the sweep table
-    (``barrier_segments(cols, fused=False)``).
+    ``hbmc_trisolve``.
     """
     global sweep_batched_launches, sweep_batched_cuda_launches
     if q.dim() != 3 or q.shape[:2] != cols.shape[:2]:
@@ -210,9 +217,8 @@ def hbmc_trisolve_batched(cols: torch.Tensor, vals: torch.Tensor,
                          f"{tuple(cols.shape[:2])} + (B,)")
     if runs_plain(q):
         return hbmc_trisolve_batched_ref(cols, vals, dinv, q)
-    seg = _segments(segments, cols, False)
-    y, n = _run("hbmc_trisolve_batched", cols, vals, dinv, q,
-                seg.ctypes.data, int(seg.size))
+    y, n = _run("hbmc_trisolve_batched", cols, vals, dinv, q, segments,
+                False)
     sweep_batched_launches += 1
     sweep_batched_cuda_launches += n
     return y

@@ -6,10 +6,9 @@ and moves it to a device; ``apply`` gathers an HBMC-ordered vector into
 round-major order, runs the sweep through ``hbmc_trisolve`` (one RHS) or
 ``hbmc_trisolve_batched`` (B RHS), and scatters the result back to HBMC
 order.  The tables carry their barrier-free segments
-(``segments.barrier_segments``): the batched sweep launches once per
-segment.  The tensor's device picks the CUDA kernel or its plain version,
-so the reference's ``use_kernel`` / ``interpret`` switches have no
-counterpart.
+(``segments.barrier_segments``): both sweeps launch once per segment.
+The tensor's device picks the CUDA kernel or its plain version, so the
+reference's ``use_kernel`` / ``interpret`` switches have no counterpart.
 
 Both permutations are scatters (``index_copy_``) with distinct indices,
 precomputed on the host.  The reference gathers with ``rows`` and
@@ -52,8 +51,9 @@ class DeviceRoundMajorTables:
     @functools.cached_property
     def segments(self) -> np.ndarray:
         """(n_segments,) int32 on the host, the barrier-free segments of
-        ``cols`` (one B6 launch each): computed at first use (the first
-        batched apply) and kept."""
+        ``cols`` (one B5 / B6 launch each): computed at first use (the
+        first apply) and kept; ``SolverPlan.refactor`` carries them over
+        while ``cols`` is unchanged."""
         return barrier_segments(self.cols.cpu().numpy(), fused=False)
 
     @classmethod
@@ -107,7 +107,8 @@ class DeviceRoundMajorTables:
     def apply(self, q: torch.Tensor) -> torch.Tensor:
         """One triangular solve.  q, result: (n_slots-1,) in HBMC order."""
         return self.from_round_major(hbmc_trisolve(
-            self.cols, self.vals, self.dinv, self.to_round_major(q)))
+            self.cols, self.vals, self.dinv, self.to_round_major(q),
+            segments=self.segments))
 
     def apply_batched(self, q: torch.Tensor) -> torch.Tensor:
         """Multi-RHS triangular solve.  q, result: (n_slots-1, B)."""

@@ -259,7 +259,7 @@ def test_smoother_on_card_matches_cpu(cuda):
     assert all(np.diff(hists[0]) < 0)
 
 
-# -- B3 / B6: one launch per barrier-free segment ---------------------------
+# -- B1 / B3 / B5 / B6: one launch per barrier-free segment -----------------
 
 def _segment_cases(plan, plan_idx):
     """(batched kernel, its plain version, the single-RHS kernel, table,
@@ -308,6 +308,65 @@ def test_segmented_kernels_bitwise_on_paper_plans(cuda, name, scheduler,
                                                q[..., j].contiguous()))
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("scheduler", ["coloring", "levelset"])
+@pytest.mark.parametrize("name", PAPER_PROBLEMS)
+def test_single_rhs_kernels_bitwise_on_paper_plans(cuda, name, scheduler,
+                                                   dtype):
+    """B1 and B5 with their tables' segments: bitwise the plain version,
+    bitwise the per-step cut, and one CUDA launch per segment."""
+    a, _ = paper_problem(name, scale="tiny")
+    kw = dict(block_size=16, w=8, shift=PAPER_SHIFTS.get(name, 0.0),
+              scheduler=scheduler, dtype=dtype, device=cuda)
+    plan, plan_idx = build_plan(a, **kw), build_plan(a, layout="index", **kw)
+    rng = np.random.default_rng(5)
+    for _, _, fn, t, n_slices in _segment_cases(plan, plan_idx):
+        ref = (hbmc_trisolve_fused_ref if fn is hbmc_trisolve_fused
+               else hbmc_trisolve_ref)
+        q = torch.tensor(rng.normal(size=(n_slices, t.cols.shape[1])),
+                         device=cuda).to(dtype)
+        z, n = _cuda_launched(lambda: fn(
+            t.cols, t.vals, t.dinv, q, segments=t.segments))
+        assert n == t.segments.size
+        assert torch.equal(z, ref(t.cols, t.vals, t.dinv, q))
+        step, n_step = _cuda_launched(lambda: fn(
+            t.cols, t.vals, t.dinv, q, segments=np.arange(t.cols.shape[0])))
+        assert n_step == t.cols.shape[0]
+        assert torch.equal(z, step)
+
+
+@pytest.mark.parametrize("k", [1, 8, 11])
+def test_single_rhs_kernels_on_random_tables(cuda, k):
+    """Random tables with many cross-lane reads, several blocks of lanes,
+    and K below, at and past the entries the kernel prefetches (8): B1 and
+    B5 bitwise their plain versions with the computed segments, one per
+    step, and None."""
+    s, r = 5, 300
+    m = s * r
+    rng = np.random.default_rng(k)
+    for fused in (True, False):
+        n_steps = 2 * s if fused else s
+        dest = step_dest(n_steps, fused)
+        cols = rng.integers(-m, m + 3, size=(n_steps, r, k))
+        c = np.where(cols < 0, cols + m, cols)
+        bad = (c // r == dest[:, None, None]) if fused else \
+            (c // r >= dest[:, None, None])
+        cols = np.where(bad, m, cols).astype(np.int32)
+        t = [torch.tensor(x, device=cuda) for x in (
+            cols, 0.3 * rng.normal(size=(n_steps, r, k)),
+            rng.uniform(0.5, 1.5, size=(n_steps, r)))]
+        q = torch.tensor(rng.normal(size=(s, r)), device=cuda)
+        fn, ref = ((hbmc_trisolve_fused, hbmc_trisolve_fused_ref) if fused
+                   else (hbmc_trisolve, hbmc_trisolve_ref))
+        want = ref(*t, q)
+        seg = barrier_segments(cols, fused)
+        for cut, launches in ((seg, seg.size), (np.arange(n_steps), n_steps),
+                              (None, seg.size)):
+            z, n = _cuda_launched(lambda: fn(*t, q, segments=cut))
+            assert n == launches and torch.equal(z, want), (fused, cut)
+
+
 def test_segmented_kernels_repeat_bitwise(cuda):
     """20 calls on one input give one result: a race shows as a bit."""
     coeff = np.exp(np.random.default_rng(1).normal(0, 1, size=(256, 256)))
@@ -315,15 +374,16 @@ def test_segmented_kernels_repeat_bitwise(cuda):
     kw = dict(block_size=16, w=8, device=cuda)
     plan, plan_idx = build_plan(a, **kw), build_plan(a, layout="index", **kw)
     rng = np.random.default_rng(0)
-    for fn, _, _, t, n_slices in _segment_cases(plan, plan_idx):
+    for fn, _, single, t, n_slices in _segment_cases(plan, plan_idx):
         assert t.segments.size == (3 if n_slices * 2 == t.cols.shape[0]
                                    else 2)
         q = torch.tensor(rng.normal(size=(n_slices, t.cols.shape[1], 8)),
                          device=cuda)
-        z0 = fn(t.cols, t.vals, t.dinv, q, segments=t.segments)
-        for _ in range(19):
-            assert torch.equal(fn(t.cols, t.vals, t.dinv, q,
-                                  segments=t.segments), z0)
+        for f, qq in ((fn, q), (single, q[..., 0].contiguous())):
+            z0 = f(t.cols, t.vals, t.dinv, qq, segments=t.segments)
+            for _ in range(19):
+                assert torch.equal(f(t.cols, t.vals, t.dinv, qq,
+                                     segments=t.segments), z0)
 
 
 def test_segmented_kernels_propagate_nan(cuda):
@@ -387,11 +447,19 @@ def test_segment_arguments_are_checked(cuda):
         with pytest.raises(ValueError, match="segments"):
             hbmc_trisolve_fused_batched(t.cols, t.vals, t.dinv, q,
                                         segments=bad)
+        with pytest.raises(ValueError, match="segments"):
+            hbmc_trisolve_fused(t.cols, t.vals, t.dinv,
+                                q[..., 0].contiguous(), segments=bad)
+        with pytest.raises(ValueError, match="segments"):
+            hbmc_trisolve(t.cols[:t.n_steps].contiguous(),
+                          t.vals[:t.n_steps].contiguous(),
+                          t.dinv[:t.n_steps].contiguous(),
+                          q[..., 0].contiguous(), segments=bad)
 
 
 def test_cuda_launch_counts_per_kernel(cuda):
-    """The CUDA launches each wrapper reports: one per step of B1 / B5, one
-    per segment of B3 / B6, one per call of B2 / B4."""
+    """The CUDA launches each wrapper reports: one per segment of B1 / B3 /
+    B5 / B6, one per call of B2 / B4."""
     a, _ = paper_problem("ieej", scale="tiny")
     kw = dict(block_size=16, w=8, device=cuda)
     plan, plan_idx = build_plan(a, **kw), build_plan(a, layout="index", **kw)
@@ -403,18 +471,20 @@ def test_cuda_launch_counts_per_kernel(cuda):
                       device=cuda)
     x = torch.tensor(rng.normal(size=(plan._spmv_n, 3)), device=cuda)
     kernels.reset_launch_counts()
-    hbmc_trisolve_fused(t.cols, t.vals, t.dinv, q[..., 0].contiguous())
+    hbmc_trisolve_fused(t.cols, t.vals, t.dinv, q[..., 0].contiguous(),
+                        segments=t.segments)
     hbmc_trisolve_fused_batched(t.cols, t.vals, t.dinv, q,
                                 segments=t.segments)
-    hbmc_trisolve(sw.cols, sw.vals, sw.dinv, qs[..., 0].contiguous())
+    hbmc_trisolve(sw.cols, sw.vals, sw.dinv, qs[..., 0].contiguous(),
+                  segments=sw.segments)
     hbmc_trisolve_batched(sw.cols, sw.vals, sw.dinv, qs,
                           segments=sw.segments)
     sell_spmv(sv, sc, x[:, 0].contiguous())
     sell_spmv_batched(sv, sc, x)
     assert kernels.cuda_launch_counts() == {
-        "hbmc_trisolve_fused": 2 * t.n_steps, "sell_spmv": 1,
+        "hbmc_trisolve_fused": t.segments.size, "sell_spmv": 1,
         "hbmc_trisolve_fused_batched": t.segments.size,
-        "sell_spmv_batched": 1, "hbmc_trisolve": sw.cols.shape[0],
+        "sell_spmv_batched": 1, "hbmc_trisolve": sw.segments.size,
         "hbmc_trisolve_batched": sw.segments.size}
     assert set(kernels.launch_counts().values()) == {1}
 

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import hbmc_trisolve as j_trisolve
 from repro.kernels import hbmc_trisolve_fused as j_trisolve_fused
 from repro.kernels import sell_spmv as j_sell_spmv
 from repro.kernels.ref import hbmc_trisolve_fused_ref as j_trisolve_ref
@@ -22,6 +23,7 @@ from repro_torch.core import build_plan, paper_problem
 from repro_torch.kernels import (hbmc_trisolve, hbmc_trisolve_fused,
                                  launch_counts, reset_launch_counts,
                                  sell_spmv, take_fill0)
+from repro_torch.kernels.segments import barrier_segments
 
 DTYPES = [(np.float64, torch.float64, 1e-12), (np.float32, torch.float32, 1e-5)]
 DTYPE_IDS = ["f64", "f32"]
@@ -62,6 +64,46 @@ def test_trisolve_fused_matches_jax(s, r, k, np_dtype, t_dtype, tol):
                                       jnp.asarray(dinv), jnp.asarray(q)))
     np.testing.assert_allclose(z, z_kernel, rtol=tol, atol=tol)
     np.testing.assert_allclose(z, z_ref, rtol=tol, atol=tol)
+
+
+def _sweep_inputs(s, r, k, dtype, seed):
+    """Random single-sweep tables: step g reads earlier slices or the
+    hole S*R, as a packed sweep does."""
+    rng = np.random.default_rng(seed)
+    m = s * r
+    cols = rng.integers(0, m, size=(s, r, k))
+    lim = (np.arange(s) * r)[:, None, None]
+    cols = np.where(cols < lim, cols, m).astype(np.int32)
+    vals = (0.3 * rng.normal(size=(s, r, k))).astype(dtype)
+    dinv = rng.uniform(0.5, 1.5, size=(s, r)).astype(dtype)
+    q = rng.normal(size=(s, r)).astype(dtype)
+    return cols, vals, dinv, q
+
+
+@pytest.mark.parametrize("cut", ["none", "computed", "per_step", "one"])
+@pytest.mark.parametrize("fused", [True, False], ids=["B1", "B5"])
+def test_segmented_single_rhs_wrappers_match_jax(fused, cut):
+    """``hbmc_trisolve_fused`` / ``hbmc_trisolve`` given their segments
+    (none, the computed cut, one per step, or a single segment, which the
+    plain version ignores) against the Pallas kernels in interpret mode;
+    every cut gives the same bits on the port's side."""
+    s, r, k = 5, 12, 10               # K past the kernel's prefetch of 8
+    if fused:
+        cols, vals, dinv, q = _fused_inputs(s, r, k, np.float64, seed=21)
+        port, jax_fn = hbmc_trisolve_fused, j_trisolve_fused
+    else:
+        cols, vals, dinv, q = _sweep_inputs(s, r, k, np.float64, seed=22)
+        port, jax_fn = hbmc_trisolve, j_trisolve
+    segments = {"none": None, "computed": barrier_segments(cols, fused),
+                "per_step": np.arange(cols.shape[0]), "one": [0]}[cut]
+    t = [torch.from_numpy(np.ascontiguousarray(x))
+         for x in (cols, vals, dinv, q)]
+    z = port(*t, segments=segments)
+    assert torch.equal(z, port(*t))
+    want = np.asarray(jax_fn(jnp.asarray(cols), jnp.asarray(vals),
+                             jnp.asarray(dinv), jnp.asarray(q),
+                             interpret=True))
+    np.testing.assert_allclose(z.numpy(), want, rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("np_dtype,t_dtype,tol", DTYPES, ids=DTYPE_IDS)

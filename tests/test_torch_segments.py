@@ -1,6 +1,7 @@
 """Barrier-free segments of the round-major step tables
-(``repro_torch.kernels.segments``), which the batched trisolve kernels B3
-and B6 launch by: one CUDA launch per segment instead of one per step.
+(``repro_torch.kernels.segments``), which the trisolve kernels (B1 and B5
+for one RHS, B3 and B6 batched) launch by: one CUDA launch per segment
+instead of one per step.
 
 The card runs the steps of one segment with one thread per (lane, column),
 the same lane at every step, and the threads in no order.  A numpy
@@ -17,12 +18,15 @@ import scipy.sparse as sp
 import torch
 
 from repro_torch.core import (PAPER_PROBLEMS, PAPER_SHIFTS, SolverPlan,
-                              build_plan, paper_problem)
+                              build_plan, paper_problem, trisolve)
 from repro_torch.core.matrices import laplace_2d
-from repro_torch.kernels import (hbmc_trisolve_batched,
+from repro_torch.kernels import (hbmc_trisolve, hbmc_trisolve_batched,
                                  hbmc_trisolve_batched_ref,
+                                 hbmc_trisolve_fused,
                                  hbmc_trisolve_fused_batched,
-                                 hbmc_trisolve_fused_batched_ref)
+                                 hbmc_trisolve_fused_batched_ref,
+                                 hbmc_trisolve_fused_ref, hbmc_trisolve_ref)
+from repro_torch.kernels import ops
 from repro_torch.kernels.segments import barrier_segments, step_dest
 
 KNOBS = dict(block_size=16, w=8, device="cpu")
@@ -303,21 +307,28 @@ def test_reads_of_unwritten_entries_are_masked(seed):
 
 
 def test_plain_wrappers_ignore_segments():
-    """On the CPU the batched wrappers run the step-major plain version,
-    whatever cut they are given."""
+    """On the CPU every trisolve wrapper runs the step-major plain version,
+    whatever cut it is given: the same bits with or without ``segments``."""
     _, cols, vals, dinv, _ = _tables("ieej")[0]
     q = _rhs(cols, True, 3, seed=1)
     t = [torch.from_numpy(np.ascontiguousarray(x))
          for x in (cols, vals, dinv, q)]
     want = hbmc_trisolve_fused_batched_ref(*t)
+    want1 = hbmc_trisolve_fused_ref(*t[:3], t[3][..., 0].contiguous())
     for seg in (None, [0], np.arange(cols.shape[0])):
         assert torch.equal(hbmc_trisolve_fused_batched(*t, segments=seg),
                            want)
+        assert torch.equal(hbmc_trisolve_fused(
+            *t[:3], t[3][..., 0].contiguous(), segments=seg), want1)
     _, cols, vals, dinv, _ = _tables("ieej")[1]
     t = [torch.from_numpy(np.ascontiguousarray(x))
          for x in (cols, vals, dinv, _rhs(cols, False, 2, seed=2))]
     assert torch.equal(hbmc_trisolve_batched(*t, segments=[0]),
                        hbmc_trisolve_batched_ref(*t))
+    q1 = t[3][..., 1].contiguous()
+    want1 = hbmc_trisolve_ref(*t[:3], q1)
+    for seg in (None, [0], np.arange(cols.shape[0])):
+        assert torch.equal(hbmc_trisolve(*t[:3], q1, segments=seg), want1)
 
 
 def _plan_arrays(plan):
@@ -362,9 +373,8 @@ def test_plans_carry_their_tables_segments():
 
 
 def test_solve_paths_pass_the_tables_segments(monkeypatch):
-    """The batched applies hand the kernels their tables' own segments."""
-    from repro_torch.core import trisolve
-    from repro_torch.kernels import ops
+    """Every apply, single-RHS and batched, in both layouts, hands the
+    kernels its tables' own segments."""
     seen = []
 
     def spy(real):
@@ -373,19 +383,62 @@ def test_solve_paths_pass_the_tables_segments(monkeypatch):
             return real(*args, segments=segments)
         return call
 
-    monkeypatch.setattr(trisolve, "hbmc_trisolve_fused_batched",
-                        spy(hbmc_trisolve_fused_batched))
-    monkeypatch.setattr(ops, "hbmc_trisolve_batched",
-                        spy(hbmc_trisolve_batched))
+    for mod, name, real in (
+            (trisolve, "hbmc_trisolve_fused", hbmc_trisolve_fused),
+            (trisolve, "hbmc_trisolve_fused_batched",
+             hbmc_trisolve_fused_batched),
+            (ops, "hbmc_trisolve", hbmc_trisolve),
+            (ops, "hbmc_trisolve_batched", hbmc_trisolve_batched)):
+        monkeypatch.setattr(mod, name, spy(real))
     a = _thermal2(24)
     b = np.random.default_rng(0).normal(size=(a.shape[0], 2))
     plan = build_plan(a, **KNOBS)
-    plan.solve_batched(b)
     t = plan._precond.tables
-    assert seen and all(s is t.segments for s in seen)
-    seen.clear()
+    for solve, rhs in ((plan.solve, b[:, 0]), (plan.solve_batched, b)):
+        solve(rhs)
+        assert seen and all(s is t.segments for s in seen)
+        seen.clear()
     plan_idx = build_plan(a, layout="index", **KNOBS)
-    plan_idx.solve_batched(b)
     kp = plan_idx._precond.kernel
-    assert seen and all(s is kp.fwd.segments or s is kp.bwd.segments
-                        for s in seen)
+    for solve, rhs in ((plan_idx.solve, b[:, 0]),
+                       (plan_idx.solve_batched, b)):
+        solve(rhs)
+        assert {id(s) for s in seen} == {id(kp.fwd.segments),
+                                         id(kp.bwd.segments)}
+        seen.clear()
+
+
+@pytest.mark.parametrize("layout", ["round_major", "index"])
+def test_refactor_keeps_the_tables_segments(monkeypatch, layout):
+    """``refactor`` repacks the tables with the same ``cols``: the new
+    tables carry the segments already computed, equal to a fresh analysis
+    of their ``cols``, which does not run again; segments never computed
+    stay lazy."""
+    calls = []
+
+    def counted(cols, fused):
+        calls.append(fused)
+        return barrier_segments(cols, fused)
+
+    monkeypatch.setattr(trisolve, "barrier_segments", counted)
+    monkeypatch.setattr(ops, "barrier_segments", counted)
+    a = _thermal2(32)
+    b = np.random.default_rng(1).normal(size=a.shape[0])
+    plan = build_plan(a, layout=layout, **KNOBS)
+    plan.refactor(sp.csr_matrix(a) * 1.5)          # before any solve
+    assert all("segments" not in vars(x) for x in plan._step_tables())
+    plan.solve(b)
+    n_calls = len(calls)
+    assert n_calls == (1 if layout == "round_major" else 2)
+    before = plan._step_tables()
+    plan.refactor(sp.csr_matrix(a) * 2.0)
+    after = plan._step_tables()
+    for was, now in zip(before, after):
+        assert now is not was and "segments" in vars(now)
+        assert now.segments is was.segments
+        np.testing.assert_array_equal(
+            now.segments, barrier_segments(now.cols.numpy(),
+                                           fused=layout == "round_major"))
+    again = plan.solve(2.0 * b)
+    assert len(calls) == n_calls                   # the analysis did not rerun
+    assert again.result.status == "CONVERGED"
