@@ -12,15 +12,17 @@ its last line:
    against their plain PyTorch versions, on the plan tables of the five
    paper generators at ``scale="bench"`` (f64, one also f32) and of the
    1M-unknown thermal2 plan.  Max relative error <= 1e-12 (f64), 1e-5 (f32).
-   The batched kernels likewise at B in {1, 3, 8} on the bench tables and
-   at B = 8 on the 1M tables, and each batched column bitwise equal to the
-   single-RHS kernel on that column.  The single-sweep kernels (B5, B6) on
-   both sweep tables of the index-layout plans of the same matrices.  Every
-   trisolve kernel (B1, B3, B5, B6) launches once per barrier-free segment
-   of its table and is held bitwise (max error 0.0) to its plain version
-   and to the same kernel cut into one launch per step, with one CUDA
-   launch per segment (the segment count of each plan is printed); 20
-   repeated calls of each on the 1M tables give one result bit for bit.
+   The batched kernels likewise at B in {1, 2, 3, 8} on the bench tables
+   and the 1M tables (B4 runs its scalar variant at B = 1 and 3 and its
+   vector variant at B = 8, and at B = 2 in f64), and each batched column
+   bitwise equal to the single-RHS kernel on that column.  The
+   single-sweep kernels (B5, B6) on both sweep tables of the index-layout
+   plans of the same matrices.  Every trisolve kernel (B1, B3, B5, B6)
+   launches once per barrier-free segment of its table and is held
+   bitwise (max error 0.0) to its plain version and to the same kernel cut
+   into one launch per step, with one CUDA launch per segment (the
+   segment count of each plan is printed); 20 repeated calls of each on
+   the 1M tables give one result bit for bit.
 3. Main path: ``build_plan`` + ``plan.solve`` on thermal2 at n = 1,048,576
    (laplace_2d(1024, 1024) with a log-normal coefficient), HBMC, block 16,
    w 8.  CONVERGED in 48 +- 2 iterations, true relres < 1e-6 on the host,
@@ -62,10 +64,13 @@ its last line:
    per PCG iteration, the plain versions, and the cuSPARSE CSR SpMV
    (``torch.mv`` on a CSR tensor, timed as a yardstick only; the port
    never calls it); the same at B = 8 for the batched kernels (cuSPARSE
-   SpMM, ``torch.sparse.mm``, as B4's yardstick; B3 in turns with its
-   tables' segments and one launch per step, the per-round launch
-   pattern), ms per batched iteration, and the service's solves per
-   second; per single sweep B5 (in turns as B1), and B6 at B = 8 (in
+   SpMM, ``torch.sparse.mm``, as B4's yardstick; B4's variant, registers
+   and launch shape, B4 on local cols (each row's entries at the row
+   itself: x read once, in order), its scalar variant on an x one element
+   off its 16-byte boundary, and a device copy moving B4's bytes; B3 in
+   turns with its tables' segments and one launch per step, the
+   per-round launch pattern), ms per batched iteration, and the service's
+   solves per second; per single sweep B5 (in turns as B1), and B6 at B = 8 (in
    turns as B3; cuSPARSE SpSV / SpSM, ``torch.triangular_solve`` on a CSR
    factor, as their yardstick where the installed torch takes one), the
    index layout's ms per iteration and per batched column, and ms per
@@ -98,7 +103,7 @@ MAIN_ITERATIONS, ITER_BAND = 48, 2
 TOL = {"torch.float64": 1e-12, "torch.float32": 1e-5}
 
 BATCH = 8                   # columns of the batched path and slab width
-BATCH_SIZES = (1, 3, 8)     # widths of the batched kernel checks
+BATCH_SIZES = (1, 2, 3, 8)  # widths of the batched kernel checks
 SERVE_REQUESTS, SERVE_QUANTUM = 24, 16
 SMOOTHER_SWEEPS = 20
 
@@ -293,12 +298,14 @@ def check_batched_kernels(plan, label: str, seed: int,
                                      hbmc_trisolve_fused_batched_ref,
                                      sell_spmv, sell_spmv_batched,
                                      sell_spmv_batched_ref)
+    from repro_torch.kernels.sell_spmv import batched_launch
     t = plan._precond.tables
     sv, sc = plan._spmv_vals, plan._spmv_cols
     dev, dt = plan.device, plan.dtype
     tol = TOL[str(dt)]
     rng = np.random.default_rng(seed)
     worst = {"hbmc_trisolve_fused_batched": 0.0, "sell_spmv_batched": 0.0}
+    variants = {}
     for nb in sizes:
         q = torch.tensor(rng.normal(size=(t.n_steps, t.lanes, nb)),
                          device=dev).to(dt)
@@ -308,6 +315,8 @@ def check_batched_kernels(plan, label: str, seed: int,
                             hbmc_trisolve_fused_batched_ref, t, q,
                             f"B3 on {label}, B={nb}")
         y = sell_spmv_batched(sv, sc, x)
+        variants[nb] = ("vector" if batched_launch(
+            *sv.shape, nb, dt, x.data_ptr() % 16).vector else "scalar")
         errs = {"hbmc_trisolve_fused_batched": rel_err(
                     z, hbmc_trisolve_fused_batched_ref(t.cols, t.vals,
                                                        t.dinv, q)),
@@ -330,11 +339,14 @@ def check_batched_kernels(plan, label: str, seed: int,
                 raise AssertionError(f"batched column {j} of B={nb} is not "
                                      f"bitwise the single-RHS kernel's on "
                                      f"{label}")
+    if len(sizes) > 1 and set(variants.values()) != {"vector", "scalar"}:
+        raise AssertionError(f"B4 ran {variants} on {label}, not both its "
+                             f"variants")
     log(f"  {label:<28} batched B={list(sizes)}: B3 in "
         f"{t.segments.size} segments of {2 * t.n_steps} steps, bitwise the "
         f"plain version and the per-step cut; spmv rel err "
-        f"{worst['sell_spmv_batched']:.3e}; every column bitwise equal to "
-        f"the single-RHS kernels")
+        f"{worst['sell_spmv_batched']:.3e} ({variants}); every column "
+        f"bitwise equal to the single-RHS kernels")
     return worst
 
 
@@ -952,6 +964,7 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
                                      hbmc_trisolve_ref, sell_spmv,
                                      sell_spmv_batched, sell_spmv_batched_ref,
                                      sell_spmv_ref)
+    from repro_torch.kernels.sell_spmv import batched_launch
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     plan_kw = dict(method="hbmc", block_size=16, w=8, spmv_format="sell",
@@ -999,7 +1012,7 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     plan_main = build_plan(a_main, **plan_kw)
     check_kernels(plan_main, f"thermal2/n={a_main.shape[0]}", seed=30)
     check_batched_kernels(plan_main, f"thermal2/n={a_main.shape[0]}",
-                          seed=31, sizes=(BATCH,))
+                          seed=31)
     check_repeats(hbmc_trisolve_fused, plan_main._precond.tables, True, None,
                   35, f"B1 thermal2/n={a_main.shape[0]}")
     check_repeats(hbmc_trisolve_fused_batched, plan_main._precond.tables,
@@ -1180,6 +1193,28 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
                               reps, dev)
     spmv_b_lib_ms = time_ms(lambda: torch.sparse.mm(a_lib, xb), 4 * reps,
                             dev)
+    # B4 on local cols: each row's K entries point at the row itself, so
+    # vals, cols and y move the real call's bytes and x is read once, in
+    # order; and a device copy that moves the bound's bytes
+    ns, nk, nw = sc.shape
+    sc_local = (torch.arange(ns * nw, dtype=torch.int32, device=dev)
+                .reshape(ns, 1, nw).expand(ns, nk, nw).contiguous())
+    spmv_b_local_ms = time_ms(lambda: sell_spmv_batched(sv, sc_local, xb),
+                              4 * reps, dev)
+    # the scalar variant at the same shapes: x one element into its storage
+    xb_buf = torch.empty(xb.numel() + 1, dtype=xb.dtype, device=dev)
+    xb_off = xb_buf[1:].view(xb.shape)
+    xb_off.copy_(xb)
+    if not torch.equal(sell_spmv_batched(sv, sc, xb_off), y_kb):
+        raise AssertionError("B4's scalar variant is not bitwise its vector "
+                             "variant at the 1M shapes")
+    spmv_b_scalar_ms = time_ms(lambda: sell_spmv_batched(sv, sc, xb_off),
+                               4 * reps, dev)
+    copy_src = torch.empty(spmv_bytes(sv, sc, xb) // 2, dtype=torch.uint8,
+                           device=dev)
+    copy_dst = torch.empty_like(copy_src)
+    copy_ms = time_ms(lambda: copy_dst.copy_(copy_src), 4 * reps, dev)
+    del sc_local, copy_src, copy_dst, xb_buf, xb_off
     iter_b_ms = loop_ms(plan.solve_batched, b8, solve_reps)
     # the single-RHS loop once more, after the batched work, as a check on
     # how much the host loop's time depends on what ran before it
@@ -1223,6 +1258,21 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
         f"{spmv_b_plain_ms:.4f}  bound {spmv_b_bnd:.4f} ({spmv_b_by}, "
         f"{spmv_bytes(sv, sc, xb) / 1e6:.1f} MB)  torch.sparse.mm CSR "
         f"{spmv_b_lib_ms:.4f}")
+    b4 = batched_launch(*sv.shape, BATCH, sv.dtype, xb.data_ptr() % 16)
+    b4_regs = (_build.load_library().lib.sell_spmv_batched_registers(
+        sv.element_size(), b4.cols_per_thread, b4.k_unrolled) if on_card
+        else "not measured")
+    log(f"  B4 variant: {'vector' if b4.vector else 'scalar'}, "
+        f"{b4.cols_per_thread} columns a thread, K "
+        f"{b4.k_unrolled or 'in chunks of 8'} unrolled, {b4.blocks} blocks "
+        f"x {b4.threads} threads (the rows' two halves side by side), "
+        f"registers a thread: {b4_regs}; bound {spmv_b_bnd:.4f}; scalar "
+        f"variant (x one element off 16 bytes) {spmv_b_scalar_ms:.4f}")
+    copy_mb = spmv_bytes(sv, sc, xb) // 2 * 2 / 1e6
+    log(f"  B4 on local cols (x read once, in order): {spmv_b_local_ms:.4f}"
+        f"; real / local {spmv_b_ms / spmv_b_local_ms:.3f}; device copy "
+        f"moving {copy_mb:.1f} MB: {copy_ms:.4f} ms "
+        f"({copy_mb / 1e3 / copy_ms:.3f} TB/s)")
     iter_b_med = iter_b_ms[len(iter_b_ms) // 2]
     log(f"batched PCG iteration, B={BATCH}: {spread(iter_b_ms)} ms, "
         f"{iter_b_med / BATCH:.4f} ms per column at the median")

@@ -39,9 +39,12 @@ _TRISOLVE = (_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _N)
 _BATCHED_TRISOLVE = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _N)
 # vals, cols, x, y, slices, K, w, len(x), stream, launches
 _SPMV = (_P, _P, _P, _P, _I64, _I, _I, _I64, _P, _N)
-# vals, cols, x, y, slices, K, w, len(x), B, stream, launches
-_BATCHED_SPMV = (_P, _P, _P, _P, _I64, _I, _I, _I64, _I, _P, _N)
-# C signature of every entry point: (argtypes), each returns cudaError_t
+# vals, cols, x, y, slices, K, w, len(x), B, columns a thread, unrolled K,
+# blocks, threads a block (sell_spmv.batched_launch), stream, launches
+_BATCHED_SPMV = (_P, _P, _P, _P, _I64, _I, _I, _I64, _I, _I, _I, _I64, _I, _P,
+                 _N)
+# C signature of every kernel entry point: (argtypes), each returns
+# cudaError_t
 SIGNATURES = {
     "hbmc_trisolve_fused_f64": _TRISOLVE,
     "hbmc_trisolve_fused_f32": _TRISOLVE,
@@ -55,6 +58,11 @@ SIGNATURES = {
     "hbmc_trisolve_f32": _TRISOLVE,
     "hbmc_trisolve_batched_f64": _BATCHED_TRISOLVE,
     "hbmc_trisolve_batched_f32": _BATCHED_TRISOLVE,
+}
+# queries: (argtypes), each returns an int
+QUERIES = {
+    # element bytes, columns a thread, unrolled K -> registers a thread
+    "sell_spmv_batched_registers": (_I, _I, _I),
 }
 
 
@@ -136,7 +144,7 @@ def load_library() -> KernelLibrary:
         log = _compile(find_nvcc(), sources, path)
         seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(path))
-    for name, argtypes in SIGNATURES.items():
+    for name, argtypes in {**SIGNATURES, **QUERIES}.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int

@@ -3,10 +3,11 @@
 Port of ``repro.kernels.sell_spmv.sell_spmv`` (the Pallas kernel
 ``_sell_spmv_kernel``) and ``sell_spmv_batched``
 (``_sell_spmv_batched_kernel``).  For a CUDA tensor each wrapper launches
-its hand-written kernel in ``csrc/sell_spmv.cu`` (one thread per output
-entry; see the source for the design and bound).  For a CPU tensor it runs
-the plain PyTorch version in ``ref``.  The TPU kernels' slice-tile padding
-was a VMEM artefact and is gone.
+its hand-written kernel in ``csrc/sell_spmv.cu`` (see the source for the
+design and bound).  For a CPU tensor it runs the plain PyTorch version in
+``ref``.  The TPU kernels' slice-tile padding was a VMEM artefact and is
+gone.  ``batched_launch`` picks the batched kernel's variant and launch
+shape; it is plain Python, so the CPU tests reach it.
 
 ``launches`` / ``batched_launches`` count the wrapper calls that launched
 the single-RHS / batched CUDA kernel, ``cuda_launches`` /
@@ -14,6 +15,8 @@ the single-RHS / batched CUDA kernel, ``cuda_launches`` /
 the C entry points report them.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -27,6 +30,57 @@ cuda_launches = 0
 batched_cuda_launches = 0
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
+
+MAX_UNROLL_K = 8        # csrc/sell_spmv.cu MAX_UNROLL_K
+BATCHED_THREADS = 256   # threads a block of the batched kernel
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchedLaunch:
+    """One launch of the batched kernel: thread t of the launch's range
+    (block b's chunk is ``(b % 2) * blocks / 2 + b // 2``, the two halves
+    of the rows side by side) computes row ``t // (B / cols_per_thread)``,
+    columns ``cols_per_thread`` from ``(t % (B / cols_per_thread)) *
+    cols_per_thread``."""
+    cols_per_thread: int   # 1: scalar; 16 bytes of columns: vector
+    k_unrolled: int        # K, fully unrolled; 0: chunks of 8 (K > 8 or 0)
+    blocks: int            # even
+    threads: int
+
+    @property
+    def vector(self) -> bool:
+        return self.cols_per_thread > 1
+
+
+def batched_launch(n_slices: int, k: int, w: int, nb: int,
+                   dtype: torch.dtype, x_align: int) -> BatchedLaunch:
+    """Variant and shape of the batched kernel for Y = A X.
+
+    ``x_align`` is ``x.data_ptr() % 16``.  The vector variant (one thread
+    per row and 16 bytes of columns) needs B a multiple of 16 bytes of
+    columns and X on a 16-byte boundary; every other shape runs the scalar
+    variant (one column a thread).  K up to ``MAX_UNROLL_K`` is unrolled
+    whole.  Raises ``ValueError`` for what neither variant takes.
+    """
+    if dtype not in _SUFFIX:
+        raise TypeError(f"the batched kernel takes float32 or float64, got "
+                        f"{dtype}")
+    size = torch.empty((), dtype=dtype).element_size()
+    if min(n_slices, k, w, nb) < 0 or not 0 <= x_align < 16 \
+            or x_align % size:
+        raise ValueError(f"no batched SpMV variant for n_slices={n_slices}, "
+                         f"K={k}, w={w}, B={nb}, {dtype}, x at {x_align} "
+                         f"mod 16")
+    vec = 16 // size
+    cpt = vec if nb % vec == 0 and x_align == 0 else 1
+    n_threads = n_slices * w * (nb // cpt)
+    blocks = -(-n_threads // BATCHED_THREADS)
+    blocks += blocks % 2
+    if blocks > 2**31 - 1:
+        raise ValueError(f"{n_threads} threads exceed one launch's grid")
+    return BatchedLaunch(cols_per_thread=cpt,
+                         k_unrolled=k if k <= MAX_UNROLL_K else 0,
+                         blocks=blocks, threads=BATCHED_THREADS)
 
 
 def _check(vals, cols, x, x_dim: int) -> None:
@@ -46,8 +100,9 @@ def _check(vals, cols, x, x_dim: int) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _run(entry: str, vals, cols, x) -> tuple[torch.Tensor, int]:
-    """Launch ``entry``; returns y and the number of CUDA launches."""
+def _run(entry: str, vals, cols, x, *shape) -> tuple[torch.Tensor, int]:
+    """Launch ``entry`` (with the launch ``shape`` arguments that follow B,
+    if any); returns y and the number of CUDA launches."""
     n_slices, k_, w_ = vals.shape
     y = torch.empty((n_slices * w_,) + tuple(x.shape[1:]), dtype=vals.dtype,
                     device=x.device)
@@ -56,7 +111,7 @@ def _run(entry: str, vals, cols, x) -> tuple[torch.Tensor, int]:
     stream = torch.cuda.current_stream(x.device).cuda_stream
     n = _build.call(f"{entry}_{_SUFFIX[vals.dtype]}", vals.data_ptr(),
                     cols.data_ptr(), x.data_ptr(), y.data_ptr(), n_slices,
-                    k_, w_, x.shape[0], *x.shape[1:], stream)
+                    k_, w_, x.shape[0], *x.shape[1:], *shape, stream)
     return y, n
 
 
@@ -87,8 +142,9 @@ def sell_spmv_batched(vals: torch.Tensor, cols: torch.Tensor,
                       x: torch.Tensor) -> torch.Tensor:
     """Y = A X for B column vectors at once.  x: (n_pad, B).
 
-    One load of the (K, w) index plane serves all B columns; column j of
-    the result is bitwise equal to ``sell_spmv`` on ``x[:, j]``.
+    One load of the (K, w) index plane serves the columns of a thread
+    (``batched_launch`` picks its variant); column j of the result is
+    bitwise equal to ``sell_spmv`` on ``x[:, j]``.
 
     Returns:
       y: (n_slices * w, B) in slice-row-major order.
@@ -97,7 +153,11 @@ def sell_spmv_batched(vals: torch.Tensor, cols: torch.Tensor,
     if runs_plain(x):
         return sell_spmv_batched_ref(vals, cols, x)
     _check(vals, cols, x, 2)
-    y, n = _run("sell_spmv_batched", vals, cols, x)
+    n_slices, k_, w_ = vals.shape
+    launch = batched_launch(n_slices, k_, w_, x.shape[1], x.dtype,
+                            x.data_ptr() % 16)
+    y, n = _run("sell_spmv_batched", vals, cols, x, launch.cols_per_thread,
+                launch.k_unrolled, launch.blocks, launch.threads)
     batched_launches += 1
     batched_cuda_launches += n
     return y

@@ -34,6 +34,7 @@ from repro_torch.kernels import (hbmc_trisolve_batched, hbmc_trisolve_fused,
                                  hbmc_trisolve_fused_batched, launch_counts,
                                  reset_launch_counts, sell_spmv,
                                  sell_spmv_batched)
+from repro_torch.kernels.sell_spmv import MAX_UNROLL_K, batched_launch
 
 BS, W = 8, 4
 KNOBS = dict(method="hbmc", block_size=BS, w=W)
@@ -68,8 +69,10 @@ def _fused_inputs(s, r, k, nb, dtype, seed):
 def _spmv_inputs(n, k, w, nb, dtype, seed):
     rng = np.random.default_rng(seed)
     n_slices = -(-n // w)
-    # indices past the end of x (n, n+5) read 0, as jnp.take(fill_value=0)
-    cols = rng.integers(0, n + 6, size=(n_slices, k, w)).astype(np.int32)
+    # as jnp.take(fill_value=0): an index in [-n, 0) wraps, one in
+    # [-n-3, -n) or [n, n+6) reads 0
+    cols = rng.integers(-n - 3, n + 6, size=(n_slices, k, w)).astype(
+        np.int32)
     vals = rng.normal(size=(n_slices, k, w)).astype(dtype)
     x = rng.normal(size=(n, nb)).astype(dtype)
     return vals, cols, x
@@ -98,8 +101,12 @@ def test_trisolve_fused_batched_matches_jax(s, r, k, nb, dtype, tol):
 
 @pytest.mark.parametrize("dtype,tol", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("n,k,w,nb", [(13, 3, 4, 1), (64, 5, 8, 3),
-                                      (100, 9, 1, 8)])
+                                      (100, 9, 1, 8), (40, 5, 8, 2),
+                                      (37, 8, 4, 4), (64, 11, 8, 16),
+                                      (30, 26, 4, 5)])
 def test_sell_spmv_batched_matches_jax(n, k, w, nb, dtype, tol):
+    """B in {2, 4, 16} and K past the kernel's unroll limit (8) are the
+    shapes that pick distinct variants on the card (``batched_launch``)."""
     vals, cols, x = _spmv_inputs(n, k, w, nb, dtype, seed=n + k)
     y = sell_spmv_batched(*_t(vals, cols, x)).numpy()
     assert y.dtype == dtype and y.shape == (-(-n // w) * w, nb)
@@ -142,6 +149,56 @@ def test_batched_nan_stays_in_its_column():
     np.testing.assert_array_equal(np.isnan(z), np.isnan(z_ref))
     assert np.isnan(z[:, 1]).any()
     assert not np.isnan(z[:, [0, 2]]).any()
+
+
+def _launch_coverage(launch, n_rows, nb):
+    """How many threads of ``launch`` write each (row, column): the index
+    math of ``sell_spmv_batched_kernel`` in ``csrc/sell_spmv.cu``."""
+    groups = nb // launch.cols_per_thread
+    b = np.arange(launch.blocks)
+    chunk = (b % 2) * (launch.blocks // 2) + b // 2
+    t = (chunk[:, None] * launch.threads
+         + np.arange(launch.threads)[None, :]).ravel()
+    t = t[t < n_rows * groups]
+    row, col = t // groups, (t % groups) * launch.cols_per_thread
+    hits = np.zeros((n_rows, nb), dtype=np.int64)
+    for i in range(launch.cols_per_thread):
+        np.add.at(hits, (row, col + i), 1)
+    return hits
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("nb,x_align,k", [
+    (1, 0, 5), (2, 0, 5), (3, 0, 8), (4, 0, 9), (8, 0, 1), (8, 8, 5),
+    (16, 0, 26), (5, 8, 26), (6, 0, 7), (12, 8, 8)])
+def test_batched_launch_covers_every_entry_once(nb, x_align, k, dtype):
+    """The variant ``batched_launch`` picks, and that its threads write
+    every (row, column) of Y exactly once, at shapes around the vector
+    width (2 columns of f64, 4 of f32), X on and off a 16-byte boundary,
+    and K at, below and above the unroll limit."""
+    size = torch.empty((), dtype=dtype).element_size()
+    vec = 16 // size
+    for n_slices, w in ((3, 4), (70, 8), (513, 8)):
+        launch = batched_launch(n_slices, k, w, nb, dtype, x_align)
+        want_vec = nb % vec == 0 and x_align == 0
+        assert launch.vector == want_vec
+        assert launch.cols_per_thread == (vec if want_vec else 1)
+        assert launch.k_unrolled == (k if k <= MAX_UNROLL_K else 0)
+        assert launch.blocks % 2 == 0 and launch.threads == 256
+        hits = _launch_coverage(launch, n_slices * w, nb)
+        np.testing.assert_array_equal(hits, 1)
+
+
+def test_batched_launch_refuses_what_no_variant_takes():
+    with pytest.raises(ValueError, match="no batched SpMV variant"):
+        batched_launch(4, 5, 8, 8, torch.float64, 4)     # X off 8 bytes
+    with pytest.raises(ValueError, match="no batched SpMV variant"):
+        batched_launch(4, 5, 8, 8, torch.float32, 2)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        batched_launch(4, 5, 8, 8, torch.float16, 0)
+    empty = batched_launch(0, 5, 8, 8, torch.float64, 0)
+    assert empty.blocks == 0
 
 
 def test_batched_wrappers_validate_and_count_no_cpu_launch():

@@ -116,14 +116,16 @@ def test_solve_on_card_matches_cpu(cuda):
     assert rep.backend == "cuda"
 
 
-@pytest.mark.parametrize("nb", [1, 3, 8])
+@pytest.mark.parametrize("nb", [1, 2, 3, 5, 8, 16])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
                          ids=["f64", "f32"])
 @pytest.mark.parametrize("name", ["thermal2", "audikw_1"])
 def test_batched_kernels_match_plain_and_single_on_card(cuda, name, dtype,
                                                         nb):
     """B3/B4 against their plain versions (tolerance) and, column for
-    column, against B1/B2 (bitwise: same arithmetic in the same order)."""
+    column, against B1/B2 (bitwise: same arithmetic in the same order).
+    B4 runs its vector variant at B = 2, 8, 16 in f64 and 8, 16 in f32, its
+    scalar variant otherwise; audikw_1's K is past the unroll limit."""
     a, _ = paper_problem(name, scale="tiny")
     plan = build_plan(a, block_size=8, w=4, dtype=dtype, device=cuda)
     t = plan._precond.tables
@@ -150,6 +152,87 @@ def test_batched_kernels_match_plain_and_single_on_card(cuda, name, dtype,
             rtol=0, atol=0)
         torch.testing.assert_close(
             y[:, j], sell_spmv(sv, sc, x[:, j].contiguous()), rtol=0, atol=0)
+
+
+def _spmv_case(k, nb, dtype, device, seed, n=301, w=4):
+    """SELL tables whose indices wrap ([-n, 0)) and fall outside [-n, n)
+    (read 0), with zero padding entries, and an (n, B) X."""
+    rng = np.random.default_rng(seed)
+    ns = -(-n // w)
+    cols = rng.integers(-n - 4, n + 4, size=(ns, k, w))
+    vals = rng.normal(size=(ns, k, w))
+    vals[:, k // 2:, w // 2:] = 0.0         # padding, multiplied all the same
+    x = rng.normal(size=(n, nb))
+    return (torch.tensor(vals, dtype=dtype, device=device),
+            torch.tensor(cols, dtype=torch.int32, device=device),
+            torch.tensor(x, dtype=dtype, device=device))
+
+
+def _assert_b4(vals, cols, x, dtype):
+    """B4 on x: one wrapper call and one CUDA launch, within TOL of the
+    plain version, every column bitwise B2 on that column; returns y."""
+    before = kernels.cuda_launch_counts()["sell_spmv_batched"]
+    y = sell_spmv_batched(vals, cols, x)
+    torch.cuda.synchronize()
+    assert kernels.cuda_launch_counts()["sell_spmv_batched"] == before + 1
+    ref = sell_spmv_batched_ref(vals, cols, x)
+    fin = torch.isfinite(ref)
+    assert torch.equal(torch.isfinite(y), fin)
+    assert _rel(y[fin], ref[fin]) <= TOL[dtype]
+    for j in range(x.shape[1]):
+        torch.testing.assert_close(
+            y[:, j], sell_spmv(vals, cols, x[:, j].contiguous()), rtol=0,
+            atol=0, equal_nan=True)
+    return y
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("k", [5, 26])
+def test_batched_spmv_on_an_offset_x(cuda, dtype, k):
+    """X a contiguous view that starts one element into its storage (8
+    bytes in f64, 4 in f32) runs the scalar variant, bitwise equal to
+    the vector variant on an aligned copy of the same X."""
+    from repro_torch.kernels.sell_spmv import batched_launch
+    vals, cols, x = _spmv_case(k, 8, dtype, cuda, seed=k)
+    buf = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+    x_off = buf[1:].view(x.shape)
+    x_off.copy_(x)
+    assert x_off.is_contiguous() and x_off.storage_offset() == 1
+    assert x_off.data_ptr() % 16 != 0 and x.data_ptr() % 16 == 0
+    ns, kk, w = vals.shape
+    assert not batched_launch(ns, kk, w, 8, dtype, x_off.data_ptr() % 16
+                              ).vector
+    assert batched_launch(ns, kk, w, 8, dtype, x.data_ptr() % 16).vector
+    assert torch.equal(_assert_b4(vals, cols, x_off, dtype),
+                       _assert_b4(vals, cols, x, dtype))
+
+
+@pytest.mark.parametrize("nb", [3, 8])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_batched_spmv_k26(cuda, dtype, nb):
+    """K = 26, past the unroll limit: chunks of 8 and a tail of 2."""
+    _assert_b4(*_spmv_case(26, nb, dtype, cuda, seed=nb), dtype)
+
+
+@pytest.mark.parametrize("nb", [2, 3, 8])
+@pytest.mark.parametrize("k", [5, 26])
+def test_batched_spmv_nan_reaches_every_row_that_reads_it(cuda, k, nb):
+    """A NaN at X[c, j] makes column j NaN in every row with an entry at c
+    (a wrapped index or a zero padding entry included) and nowhere else."""
+    vals, cols, x = _spmv_case(k, nb, torch.float64, cuda, seed=3 * k)
+    n = x.shape[0]
+    c, j = 17, nb - 1
+    x[c, j] = float("nan")
+    y = _assert_b4(vals, cols, x, torch.float64)
+    cw = cols.long()
+    cw = torch.where(cw < 0, cw + n, cw)
+    reads = (cw == c).any(dim=1).reshape(-1)
+    assert reads.any() and not reads.all()
+    assert torch.equal(torch.isnan(y[:, j]), reads)
+    others = [i for i in range(nb) if i != j]
+    assert not torch.isnan(y[:, others]).any()
 
 
 def test_solve_batched_on_card_matches_cpu(cuda):
