@@ -25,30 +25,36 @@ its last line:
    the 1M tables give one result bit for bit.
 3. Main path: ``build_plan`` + ``plan.solve`` on thermal2 at n = 1,048,576
    (laplace_2d(1024, 1024) with a log-normal coefficient), HBMC, block 16,
-   w 8.  CONVERGED in 48 +- 2 iterations, true relres < 1e-6 on the host,
-   one trisolve kernel launch per apply (iterations + 1, 3 CUDA launches
-   each, one per segment) and one SpMV kernel launch per iteration.  Every
-   phase from here to 3d checks the CUDA launches each wrapper reports (one
-   per segment of B1 / B3 / B5 / B6, one per call of B2 / B4) as well as
-   the wrapper calls.  The main plans' barrier-free segments, recomputed
-   and timed on the host: [0, 16, 48] for the fused table, [0, 16] for each
-   sweep.  A small solve on the card is held against the same solve on the
-   CPU (plain path).
+   w 8.  CONVERGED in 48 +- 2 iterations, true relres < 1e-6 on the host.
+   The PCG loops run blocks of k masked steps, replayed as CUDA graphs
+   (``repro_torch.core.device_loop``), so a solve launches ``1 + k x
+   blocks`` trisolve applies (3 CUDA launches each, one per segment) and
+   ``k x blocks`` SpMVs, masked steps included, with ``blocks = ceil(trips
+   / k)``, one flag read per block and one before it, and one capture.
+   Every phase from here to 3d checks those counts, the CUDA launches each
+   wrapper reports (one per segment of B1 / B3 / B5 / B6, one per call of
+   B2 / B4) and the wrapper calls.  The graph cache: a warm solve and a
+   ``refactor`` to A + 0.37 diag(A) and back keep one captured graph and
+   the first solve's bits; a small refactored solve is bitwise a cold
+   plan's.  The main plans' barrier-free segments, recomputed and timed on
+   the host: [0, 16, 48] for the fused table, [0, 16] for each sweep.  A
+   small solve on the card is held against the same solve on the CPU.
 3b. Batched path: ``plan.solve_batched`` on the same plan with B = 8
    columns from ``default_rng(11)``: every column CONVERGED with true relres
    < 1e-6 and the iteration count of ``plan.solve`` on that column; launches
-   B3 = n_steps + 1, B4 = n_steps, none of the single-RHS kernels; CUDA
-   launches of B3 = 3 per apply (one per segment).
+   B3 = 1 + k x blocks, B4 = k x blocks for n_steps trips, none of the
+   single-RHS kernels; CUDA launches of B3 = 3 per apply.
 3c. Serving: a ``SolverService(slab_width=8, quantum=16)`` on a wall clock
    over the same matrix, 24 seeded requests, one with a NaN RHS and one
    with a zero RHS: NaN -> BREAKDOWN, zero -> CONVERGED at 0 iterations,
    the rest CONVERGED at their single-RHS counts; the NaN request's slab
    neighbours and others bitwise equal to ``plan.solve_slab`` on the
-   service's cached plan; 3 CUDA launches per B3 apply.
+   service's cached plan; B3 = dispatches + k x blocks, blocks summed
+   over the dispatches' trips; one graph captured.
 3d. Index layout: ``build_plan(..., layout="index")`` on the same matrix:
    ``plan.solve`` CONVERGED in 48 +- 2 iterations, true relres < 1e-6, two
-   single-sweep launches per apply (2 x (iterations + 1), 2 CUDA launches
-   each) and one SpMV launch per iteration; ``plan.solve_batched`` on the
+   single-sweep launches per apply (2 x (1 + k x blocks), 2 CUDA launches
+   each) and k x blocks SpMVs; ``plan.solve_batched`` on the
    8 columns, each at its index-plan ``plan.solve`` count, with 2 CUDA
    launches per B6 sweep; one preconditioner apply bitwise
    equal, on every live entry, to the round-major plan's fused apply of the
@@ -74,7 +80,12 @@ its last line:
    turns as B3; cuSPARSE SpSV / SpSM, ``torch.triangular_solve`` on a CSR
    factor, as their yardstick where the installed torch takes one), the
    index layout's ms per iteration and per batched column, and ms per
-   smoother sweep.
+   smoother sweep.  Every PCG loop (round-major and index, one RHS and
+   B = 8) replayed as graphs against the same loop run eagerly block by
+   block, in turns A B B A at k = 1, 4, 8, 16: ms per iteration, the
+   capture's seconds, the replayed result bitwise the eager one; both
+   forms under the profiler, with the device's busy share under it and
+   without it.
 
 Its last lines: one JSON object with a row per kernel (``launches`` are
 wrapper calls on the main path, ``cuda_launches`` the CUDA launches they
@@ -105,6 +116,7 @@ TOL = {"torch.float64": 1e-12, "torch.float32": 1e-5}
 BATCH = 8                   # columns of the batched path and slab width
 BATCH_SIZES = (1, 2, 3, 8)  # widths of the batched kernel checks
 SERVE_REQUESTS, SERVE_QUANTUM = 24, 16
+LOOP_KS = (1, 4, 8, 16)     # steps per flag read timed in phase 4
 SMOOTHER_SWEEPS = 20
 
 KERNELS = {
@@ -207,8 +219,7 @@ def cuda_launches_per_call(fn) -> int:
 
 def loop_ms(solve, rhs, reps: int) -> list[float]:
     """Wall ms per PCG loop trip (the solve's own device-synchronised host
-    clock around its loop) over ``reps`` solves, sorted.  The loop is
-    host-bound, so its time varies between runs more than a kernel's."""
+    clock around its loop) over ``reps`` solves, sorted."""
     out = []
     for _ in range(reps):
         rep = solve(rhs)
@@ -442,43 +453,180 @@ def single_rhs_turns(fn, batched_fn, t, q, reps: int, device,
     return out
 
 
+def embedded(plan, rhs):
+    """``rhs`` (n[, B]) in the caller's ordering -> the plan's solve layout
+    on its device."""
+    import numpy as np
+    b_bar = np.zeros((plan.n_padded,) + rhs.shape[1:])
+    b_bar[plan._perm] = rhs
+    return plan._embed(b_bar)
+
+
+def loop_runner(plan, rhs, batched: bool, k: int | None = None):
+    """``run(eager)`` -> (seconds, result) of one warm PCG loop of ``plan``
+    on ``rhs`` at ``k`` steps per read (None: the plan's own), the
+    device synchronised around it: replayed graphs through the plan's
+    cache, or (``eager``) every block run eagerly."""
+    from repro_torch.core.iccg import _pcg_batched_device, _pcg_device
+    b_dev = embedded(plan, rhs)
+    fn, ops = ((_pcg_batched_device, (plan._spmv_batched,
+                                      plan._precond.apply_batched))
+               if batched else (_pcg_device, (plan._spmv, plan._precond)))
+
+    def run(eager: bool):
+        plan._sync()
+        t0 = time.perf_counter()
+        res = fn(*ops, b_dev, steps_per_read=k,
+                 loops=None if eager else plan._pcg_cache, eager=eager)
+        plan._sync()
+        return time.perf_counter() - t0, res
+    return run
+
+
 def profile_solve(plan, b, b_batched, tag: str = "") -> None:
-    """Device time by kernel over one warm ``plan.solve`` and one warm
-    ``plan.solve_batched`` (torch.profiler), and the device's busy share of
-    each PCG loop: kernel time over the loop's wall time.  Memory copies
-    are counted apart: the RHS upload and the solution download happen
-    outside the loop (pageable host memory), the per-iteration flag reads
-    inside it.  The profiler adds host cost per op, so the busy share it
-    shows is a lower bound."""
+    """Device time by kernel over one warm single-RHS and one warm batched
+    PCG loop, each replayed as graphs (the plan's path) and run eagerly
+    block by block (torch.profiler), and the device's busy share of each:
+    kernel time over the loop's wall time under the profiler, and over its
+    wall time without the profiler (median of 3 loops).  Memory copies are
+    counted apart (the flag reads).  The profiler adds host cost per op,
+    so the busy share under it is a lower bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    for label, solve, rhs in ((f"{tag}solve", plan.solve, b),
-                              (f"{tag}solve_batched "
-                               f"(B={b_batched.shape[1]})",
-                               plan.solve_batched, b_batched)):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            rep = solve(rhs)
-        by_name: dict[str, float] = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                by_name[e.name] = by_name.get(e.name, 0.0) + \
-                    e.time_range.elapsed_us() / 1e3
-        loop_ms = rep.solve_seconds * 1e3
-        if not by_name:
-            log(f"profile of one {label}: no device activity recorded "
-                f"(device busy share: not measured); PCG loop "
-                f"{loop_ms:.2f} ms under the profiler")
-            continue
-        copy_ms = sum(ms for name, ms in by_name.items()
-                      if name.startswith("Memcpy"))
-        kernel_ms = sum(by_name.values()) - copy_ms
-        log(f"profile of one {label}: device kernels {kernel_ms:.2f} ms of "
-            f"the PCG loop's {loop_ms:.2f} ms under the profiler "
-            f"({100 * kernel_ms / loop_ms:.1f}% busy); memory copies "
-            f"{copy_ms:.2f} ms; device ms by kernel:")
-        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-            log(f"  {ms:9.3f}  {name[:90]}")
+    for label, batched, rhs in ((f"{tag}solve", False, b),
+                                (f"{tag}solve_batched "
+                                 f"(B={b_batched.shape[1]})", True,
+                                 b_batched)):
+        run = loop_runner(plan, rhs, batched)
+        for eager in (False, True):
+            run(eager)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                loop_s, _ = run(eager)
+            by_name: dict[str, float] = {}
+            records = 0
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    records += 1
+                    by_name[e.name] = by_name.get(e.name, 0.0) + \
+                        e.time_range.elapsed_us() / 1e3
+            wall = sorted(run(eager)[0] for _ in range(3))[1] * 1e3
+            loop_ms = loop_s * 1e3
+            how = "eager blocks" if eager else "replayed graphs"
+            if not by_name:
+                log(f"profile of one {label}, {how}: no device activity "
+                    f"recorded (device busy share: not measured); PCG loop "
+                    f"{loop_ms:.2f} ms under the profiler, {wall:.2f} ms "
+                    f"without")
+                continue
+            copy_ms = sum(ms for name, ms in by_name.items()
+                          if name.startswith("Memcpy"))
+            kernel_ms = sum(by_name.values()) - copy_ms
+            log(f"profile of one {label}, {how}: device kernels "
+                f"{kernel_ms:.2f} ms in {records} device records; the PCG "
+                f"loop {loop_ms:.2f} ms under the profiler "
+                f"({100 * kernel_ms / loop_ms:.1f}% busy), {wall:.2f} ms "
+                f"without it ({100 * kernel_ms / wall:.1f}% busy); memory "
+                f"copies {copy_ms:.2f} ms; device ms by kernel:")
+            for name, ms in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1])[:8]:
+                log(f"  {ms:9.3f}  {name[:90]}")
+
+
+def graph_turns(plan, plan_idx, b, b8, reps: int) -> None:
+    """Phase 4: every PCG loop replayed as graphs (B) against the same loop
+    run eagerly block by block (A), in turns A B B A at each k in
+    ``LOOP_KS``: ms per loop trip (median of ``reps`` loops a turn), the
+    capture's own seconds, and the replayed result bitwise the eager
+    one."""
+    import torch
+    for label, pl, batched, rhs in (("round-major", plan, False, b),
+                                    ("index", plan_idx, False, b),
+                                    (f"round-major B={BATCH}", plan, True,
+                                     b8),
+                                    (f"index B={BATCH}", plan_idx, True,
+                                     b8)):
+        for k in LOOP_KS:
+            run = loop_runner(pl, rhs, batched, k)
+            _, got = run(False)          # captured here unless cached
+            _, want = run(True)
+            for g, w in zip(got, want):
+                if not (g == w if isinstance(w, int) else torch.equal(g, w)):
+                    raise AssertionError(f"{label} k={k}: the replayed loop "
+                                         f"is not bitwise the eager one")
+            trips = got[3] if batched else int(got[1])
+            kind = "batched" if batched else "single"
+            cap = [lp.capture_seconds for key, lp in pl._pcg_cache.items()
+                   if key[0] == kind and key[6] == k
+                   and key[7] == (BATCH if batched else None)
+                   and key[1:6] == (1e-7, 10_000, False, 1e8, 1000)]
+            times = {"A": [], "B": []}
+            for turn in "ABBA":
+                ms = sorted(run(turn == "A")[0] for _ in range(reps))
+                times[turn].append(ms[len(ms) // 2] * 1e3 / max(trips, 1))
+            a_ms, b_ms = (sum(v) / 2 for v in (times["A"], times["B"]))
+            log(f"PCG loop {label}, k={k:>2}: ms per iteration, eager / "
+                f"graph / graph / eager: {times['A'][0]:.4f} / "
+                f"{times['B'][0]:.4f} / {times['B'][1]:.4f} / "
+                f"{times['A'][1]:.4f}; graph takes {b_ms / a_ms:.3f} of "
+                f"eager; {trips} trips, {-(-trips // k)} reads; capture "
+                f"{cap[0] if cap else 0.0:.3f} s; bitwise the eager loop")
+
+
+def graph_cache_phase(plan, a, b, first, plan_kw: dict,
+                      on_card: bool) -> None:
+    """Phase 3, graphs: the plan keeps one captured graph for the solve's
+    signature (none off the card) across a warm solve, which replays from
+    the first block and gives the first solve's bits, and across
+    ``refactor`` to a perturbed matrix and back, which write the new values
+    in place: the perturbed solve converges on the perturbed matrix, the
+    solve after the way back gives the first solve's bits.  At a small
+    size the refactored solve is bitwise a cold plan's."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from repro_torch.core import build_plan
+    want = 1 if on_card else 0
+    warm = plan.solve(b)
+    a2 = (a + 0.37 * sp.diags(a.diagonal())).tocsr()
+    t0 = time.perf_counter()
+    plan.refactor(a2)
+    refactor_s = time.perf_counter() - t0
+    moved = plan.solve(b)
+    true2 = float(np.linalg.norm(b - a2 @ moved.x) / np.linalg.norm(b))
+    plan.refactor(a)
+    back = plan.solve(b)
+    log(f"graphs: {plan._capture_count} captured for {len(plan._pcg_cache)} "
+        f"signature(s) after a warm solve ({warm.result.iterations} it, "
+        f"{warm.solve_seconds:.3f} s), refactor to A + 0.37 diag(A) "
+        f"({refactor_s:.3f} s; {moved.result.status} in "
+        f"{moved.result.iterations} it, true relres {true2:.3e}) and back "
+        f"({back.result.iterations} it)")
+    for label, rep in (("warm", warm), ("refactored back", back)):
+        if (rep.result.iterations != first.result.iterations
+                or not np.array_equal(rep.x, first.x)):
+            raise AssertionError(f"{label} solve is not bitwise the first")
+    if moved.result.status != "CONVERGED" or not true2 < 1e-6:
+        raise AssertionError("the refactored solve did not solve the "
+                             "refactored matrix")
+    if plan._capture_count != want or len(plan._pcg_cache) != 1:
+        raise AssertionError(f"{plan._capture_count} graphs captured for "
+                             f"{len(plan._pcg_cache)} signatures")
+    a_s = thermal2_matrix(48)
+    b_s = np.random.default_rng(8).normal(size=a_s.shape[0])
+    p_s = build_plan(a_s, **plan_kw)
+    p_s.solve(b_s)
+    a_s2 = (a_s + 0.37 * sp.diags(a_s.diagonal())).tocsr()
+    p_s.refactor(a_s2)
+    got = p_s.solve(b_s)
+    cold = build_plan(a_s2, **plan_kw).solve(b_s)
+    if (p_s._capture_count != want or not np.array_equal(got.x, cold.x)
+            or got.result.iterations != cold.result.iterations):
+        raise AssertionError("small refactored solve is not bitwise a cold "
+                             "plan's, or captured again")
+    log(f"graphs: small plan (n={a_s.shape[0]}) refactored, "
+        f"{got.result.iterations} it, bitwise a cold plan's solve; "
+        f"{p_s._capture_count} graph captured")
 
 
 def segment_phase(plan, plan_idx, grid: int) -> None:
@@ -519,6 +667,36 @@ def cuda_launches_want(on_card: bool, **counts) -> dict:
     return want
 
 
+def reset_counts() -> None:
+    """Zero the kernels' launch counters and the PCG loops' counters."""
+    from repro_torch import kernels
+    from repro_torch.core import device_loop
+    kernels.reset_launch_counts()
+    device_loop.reset_loop_counts()
+
+
+def loop_blocks(trips: list[int], label: str,
+                on_card: bool) -> tuple[int, int]:
+    """The PCG loops' blocks since ``reset_counts``, over loop runs of
+    ``trips`` trips each: ``ceil(trips / k)`` blocks a run, one flag read
+    per block and one before it; on the card every block but a capture's
+    eager first one a replay (off it none).  Returns ``(k, blocks)``; a
+    block launches k steps' kernels, masked steps included."""
+    from repro_torch.core import device_loop
+    k = device_loop._STEPS_PER_READ
+    loops = device_loop.loop_counts()
+    want = sum(-(-t // k) for t in trips)
+    log(f"{label}: {loops['blocks']} blocks of k = {k} steps for "
+        f"{sum(trips)} trips ({loops['replays']} replayed, "
+        f"{loops['captures']} captured), {loops['reads']} flag reads")
+    replays = want - loops["captures"] if on_card else 0
+    if (loops["blocks"] != want or loops["reads"] != want + len(trips)
+            or loops["replays"] != replays):
+        raise AssertionError(f"{label}: loop counts {loops}, expected "
+                             f"{want} blocks over {len(trips)} runs")
+    return k, loops["blocks"]
+
+
 def solve_batched_phase(plan, a, on_card: bool):
     """Phase 3b: ``plan.solve_batched`` on B = 8 seeded columns."""
     import numpy as np
@@ -526,11 +704,12 @@ def solve_batched_phase(plan, a, on_card: bool):
     from repro_torch import kernels
     n = a.shape[0]
     b8 = np.random.default_rng(11).normal(size=(n, BATCH))
-    kernels.reset_launch_counts()
+    reset_counts()
     rep = plan.solve_batched(b8)
     counts = kernels.launch_counts()
     cuda_counts = kernels.cuda_launch_counts()
     res = rep.result
+    k, blocks = loop_blocks([res.n_steps], "solve_batched", on_card)
     true_relres = (np.linalg.norm(b8 - a @ rep.x, axis=0)
                    / np.linalg.norm(b8, axis=0))
     singles = [plan.solve(b8[:, j]).result.iterations for j in range(BATCH)]
@@ -549,14 +728,14 @@ def solve_batched_phase(plan, a, on_card: bool):
                              f"{true_relres}")
     want = dict(NO_LAUNCHES)
     if on_card:
-        want.update(hbmc_trisolve_fused_batched=res.n_steps + 1,
-                    sell_spmv_batched=res.n_steps)
+        want.update(hbmc_trisolve_fused_batched=1 + k * blocks,
+                    sell_spmv_batched=k * blocks)
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     n_seg = plan._precond.tables.segments.size
     want_cuda = cuda_launches_want(
-        on_card, hbmc_trisolve_fused_batched=n_seg * (res.n_steps + 1),
-        sell_spmv_batched=res.n_steps)
+        on_card, hbmc_trisolve_fused_batched=n_seg * (1 + k * blocks),
+        sell_spmv_batched=k * blocks)
     log(f"solve_batched: CUDA launches {cuda_counts} (B3 {n_seg} per "
         f"apply)")
     if cuda_counts != want_cuda:
@@ -579,7 +758,7 @@ def serve_phase(a, plan_kw: dict, on_card: bool):
     bs[zero_at] = np.zeros(n)
     svc = SolverService(slab_width=BATCH, quantum=SERVE_QUANTUM,
                         clock=WallClock(), record_dispatches=True, **plan_kw)
-    kernels.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     rids = [svc.submit(a, b) for b in bs]
     t1 = time.perf_counter()
@@ -593,6 +772,11 @@ def serve_phase(a, plan_kw: dict, on_card: bool):
     plan, cache_status = svc.cache.get(a, **plan_kw)
     if cache_status != "hit":
         raise AssertionError(f"service plan not cached ({cache_status})")
+    k, blocks = loop_blocks([e["steps"] for e in svc.dispatch_log],
+                            "service", on_card)
+    if on_card and plan._capture_count != 1:
+        raise AssertionError(f"service plan captured {plan._capture_count} "
+                             f"graphs for one signature")
     log(f"service: {len(done)} requests in {wall_s:.3f} s wall "
         f"({len(done) / wall_s:.2f} solves/s; plan build included): "
         f"submits {t1 - t0:.3f} s (canonical CSR + fingerprints of the "
@@ -602,14 +786,15 @@ def serve_phase(a, plan_kw: dict, on_card: bool):
         f"quarantined {svc.n_quarantined}; launches {counts}")
     want = dict(NO_LAUNCHES)
     if on_card:
-        want.update(hbmc_trisolve_fused_batched=len(svc.dispatch_log) + steps,
-                    sell_spmv_batched=steps)
+        want.update(hbmc_trisolve_fused_batched=len(svc.dispatch_log)
+                    + k * blocks, sell_spmv_batched=k * blocks)
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     n_seg = plan._precond.tables.segments.size
     want_cuda = cuda_launches_want(
         on_card, hbmc_trisolve_fused_batched=n_seg * (
-            len(svc.dispatch_log) + steps), sell_spmv_batched=steps)
+            len(svc.dispatch_log) + k * blocks),
+        sell_spmv_batched=k * blocks)
     log(f"service: CUDA launches {cuda_counts} (B3 {n_seg} per apply)")
     if cuda_counts != want_cuda:
         raise AssertionError(f"CUDA launches {cuda_counts}, expected "
@@ -777,11 +962,12 @@ def index_phase(plan, a, plan_rm, plan_kw: dict, b, b8, iterations,
     from repro_torch.core import build_plan
     n = a.shape[0]
     dev = plan_rm.device
-    kernels.reset_launch_counts()
+    reset_counts()
     rep = plan.solve(b)
     counts = kernels.launch_counts()
     cuda_counts = kernels.cuda_launch_counts()
     res = rep.result
+    k, blocks = loop_blocks([res.iterations], "index solve", on_card)
     true_relres = float(np.linalg.norm(b - a @ rep.x) / np.linalg.norm(b))
     log(f"index solve: status {res.status}, iterations {res.iterations}, "
         f"relres {res.relres:.3e}, true relres {true_relres:.3e}, "
@@ -799,27 +985,28 @@ def index_phase(plan, a, plan_rm, plan_kw: dict, b, b8, iterations,
                              f"{true_relres:.3e}")
     want = dict(NO_LAUNCHES)
     if on_card:
-        want.update(hbmc_trisolve=2 * (res.iterations + 1),
-                    sell_spmv=res.iterations)
+        want.update(hbmc_trisolve=2 * (1 + k * blocks),
+                    sell_spmv=k * blocks)
     if counts != want:
         raise AssertionError(f"index launch counts {counts}, expected "
                              f"{want}")
     kp = plan._precond.kernel
     per_apply = kp.fwd.segments.size + kp.bwd.segments.size   # B5 and B6
     want_cuda = cuda_launches_want(
-        on_card, hbmc_trisolve=per_apply * (res.iterations + 1),
-        sell_spmv=res.iterations)
+        on_card, hbmc_trisolve=per_apply * (1 + k * blocks),
+        sell_spmv=k * blocks)
     if cuda_counts != want_cuda:
         raise AssertionError(f"index CUDA launches {cuda_counts}, expected "
                              f"{want_cuda}")
     log(f"index solve: B5 {kp.fwd.segments.size} + {kp.bwd.segments.size} "
         f"CUDA launches per apply")
 
-    kernels.reset_launch_counts()
+    reset_counts()
     rep_b = plan.solve_batched(b8)
     counts_b = kernels.launch_counts()
     cuda_b = kernels.cuda_launch_counts()
     res_b = rep_b.result
+    k, blocks = loop_blocks([res_b.n_steps], "index solve_batched", on_card)
     singles = [plan.solve(b8[:, j]).result.iterations
                for j in range(b8.shape[1])]
     true_b = (np.linalg.norm(b8 - a @ rep_b.x, axis=0)
@@ -835,14 +1022,14 @@ def index_phase(plan, a, plan_rm, plan_kw: dict, b, b8, iterations,
                              "single-RHS solves")
     want = dict(NO_LAUNCHES)
     if on_card:
-        want.update(hbmc_trisolve_batched=2 * (res_b.n_steps + 1),
-                    sell_spmv_batched=res_b.n_steps)
+        want.update(hbmc_trisolve_batched=2 * (1 + k * blocks),
+                    sell_spmv_batched=k * blocks)
     if counts_b != want:
         raise AssertionError(f"index batched launch counts {counts_b}, "
                              f"expected {want}")
     want_cuda = cuda_launches_want(
-        on_card, hbmc_trisolve_batched=per_apply * (res_b.n_steps + 1),
-        sell_spmv_batched=res_b.n_steps)
+        on_card, hbmc_trisolve_batched=per_apply * (1 + k * blocks),
+        sell_spmv_batched=k * blocks)
     log(f"index solve_batched: CUDA launches {cuda_b} (B6 "
         f"{kp.fwd.segments.size} + {kp.bwd.segments.size} per apply)")
     if cuda_b != want_cuda:
@@ -1035,7 +1222,7 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     log("== 3. main path: build_plan + solve, thermal2 "
         f"n={a_main.shape[0]} nnz={a_main.nnz}")
     b = np.random.default_rng(7).normal(size=a_main.shape[0])
-    kernels.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     plan = build_plan(a_main, **plan_kw)
     setup_s = time.perf_counter() - t0
@@ -1043,6 +1230,7 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     counts = kernels.launch_counts()
     cuda_main = kernels.cuda_launch_counts()
     res = rep.result
+    k, blocks = loop_blocks([res.iterations], "solve", on_card)
     true_relres = float(np.linalg.norm(b - a_main @ rep.x)
                         / np.linalg.norm(b))
     t = plan._precond.tables
@@ -1064,16 +1252,17 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
         raise AssertionError(f"bad solution: true relres {true_relres:.3e}")
     want = dict(NO_LAUNCHES)
     if on_card:
-        want.update(hbmc_trisolve_fused=res.iterations + 1,
-                    sell_spmv=res.iterations)
+        want.update(hbmc_trisolve_fused=1 + k * blocks,
+                    sell_spmv=k * blocks)
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     want_cuda = cuda_launches_want(
-        on_card, hbmc_trisolve_fused=t.segments.size * (res.iterations + 1),
-        sell_spmv=res.iterations)
+        on_card, hbmc_trisolve_fused=t.segments.size * (1 + k * blocks),
+        sell_spmv=k * blocks)
     if cuda_main != want_cuda:
         raise AssertionError(f"CUDA launches {cuda_main}, expected "
                              f"{want_cuda}")
+    graph_cache_phase(plan, a_main, b, rep, plan_kw, on_card)
     segment_phase(plan, plan_idx, grid)
     # the same small solve through the kernels and through the plain path
     a_small = thermal2_matrix(48)
@@ -1354,6 +1543,8 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
         f"reference's form) {perm_gather_ms:.4f} ms; 4 per apply")
     log(f"GS sweep on the main HBMC system (PyTorch ops, "
         f"{sw_lanes[0]} rounds): {smooth_ms:.4f} ms")
+    log("PCG loops, replayed graphs against eager blocks, in turns:")
+    graph_turns(plan, plan_idx, b, b8, 3 if on_card else 1)
     profile_solve(plan, b, b8)
     profile_solve(plan_idx, b, b8, tag="index ")
 

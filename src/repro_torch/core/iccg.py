@@ -3,10 +3,16 @@
 Port of ``repro.core.iccg``: the single-RHS loop (``pcg``), the batched
 multi-RHS loop (``pcg_batched``) and the quantum-stepped slab loop of the
 serving layer (``SlabState``, ``_pcg_slab_device``).  The reference runs
-each loop as a device-side ``lax.while_loop``; here it is a host loop over
-device tensors that reads one device flag per iteration (``.item()``, the
-loop condition).  The state, the health monitor and the final status stay
-on the device and follow the reference step for step.  The SpMV is the
+each loop as a device-side ``lax.while_loop``; here each runs blocks of
+``k`` masked steps through ``device_loop.BlockLoop`` (a CUDA graph replayed
+on the card) and reads one device flag, the loop condition, per block.  A
+step after the stop changes nothing that outlives it, so every count,
+status, history and iterate is the one the reference's loop gives, whatever
+``k`` is.  The state, the health monitor and the final status stay on the
+device and follow the reference step for step.  Every tensor a step reads
+is in the loop's state or lives as long as the plan (its operands), and the
+status codes in a step are Python ints, so a captured block reads nothing
+that a later solve frees.  The SpMV is the
 SELL-w product through ``kernels.sell_spmv`` / ``sell_spmv_batched``, or the
 row-major ELL product ``spmv_ell`` (PyTorch ops: the reference never had an
 ELL kernel); dots and axpys are PyTorch ops, as they were XLA ops in the
@@ -30,6 +36,8 @@ import torch
 
 from ..kernels.ref import _sum_over_k
 from ..kernels.sell_spmv import sell_spmv, sell_spmv_batched
+from . import device_loop
+from .device_loop import BlockLoop, LoopCache
 
 # ---------------------------------------------------------------------------
 # Solve-status taxonomy (identical codes and names to the reference).
@@ -103,6 +111,21 @@ class PCGResult:
     status: str = "CONVERGED"
 
 
+def _loop(loops: LoopCache | None, steps_per_read: int | None, kind: str,
+          rtol, maxiter, record_history, divergence_factor,
+          stagnation_window, width: int | None = None) -> BlockLoop:
+    """The loop of one signature: from the plan's cache ``loops`` (None: a
+    loop of the caller's own), keyed as the reference keys ``_pcg_fn``'s
+    jits plus the steps per read (None: ``device_loop._STEPS_PER_READ``)
+    and, for the batched and slab loops, the slab width."""
+    k = steps_per_read or device_loop._STEPS_PER_READ
+    if loops is None:
+        return BlockLoop(k)
+    return loops.get((kind, float(rtol), int(maxiter), bool(record_history),
+                      float(divergence_factor), int(stagnation_window), k,
+                      width), k)
+
+
 def _pcg_device(spmv: Callable[[torch.Tensor], torch.Tensor],
                 precond: Callable[[torch.Tensor], torch.Tensor],
                 b: torch.Tensor,
@@ -110,7 +133,9 @@ def _pcg_device(spmv: Callable[[torch.Tensor], torch.Tensor],
                 maxiter: int = 10_000,
                 record_history: bool = False,
                 divergence_factor: float | None = DIVERGENCE_FACTOR,
-                stagnation_window: int | None = STAGNATION_WINDOW):
+                stagnation_window: int | None = STAGNATION_WINDOW,
+                *, steps_per_read: int | None = None,
+                loops: LoopCache | None = None, eager: bool = False):
     """Device core of ``pcg``: tensors in, tensors out.
 
     Returns ``(x, iterations, relres, status, history)`` as tensors on
@@ -120,23 +145,23 @@ def _pcg_device(spmv: Callable[[torch.Tensor], torch.Tensor],
     ``x_prev`` is reported; ``relres`` past ``divergence_factor * best``
     stops with ``DIVERGED``; ``stagnation_window`` iterations without a new
     best stop with ``STAGNATED``.
+
+    The loop runs blocks of ``steps_per_read`` masked steps (None:
+    ``device_loop._STEPS_PER_READ``), replayed as a CUDA graph on the card;
+    ``loops`` is the plan's cache of captured blocks (None: a loop of this
+    call's own), and ``eager`` runs every block eagerly on the card too.
     """
     if divergence_factor is None:
         divergence_factor = float("inf")
     if stagnation_window is None:
         stagnation_window = maxiter + 1
     dev = b.device
-    # status codes as device scalars, made once (not one copy per use)
-    codes = torch.arange(len(STATUS_NAMES), dtype=torch.int32, device=dev)
-
-    def code(c: int) -> torch.Tensor:
-        return codes[c]
+    codes = _status_codes(dev)
 
     bnorm = torch.linalg.vector_norm(b)
     bnorm = torch.where(bnorm == 0, torch.ones_like(bnorm), bnorm)
 
     x = torch.zeros_like(b)
-    x_prev = x
     r = b
     z = precond(r)
     p = z
@@ -147,10 +172,10 @@ def _pcg_device(spmv: Callable[[torch.Tensor], torch.Tensor],
     # a non-finite initial state (NaN/Inf in b, or a preconditioner that
     # produced one) is a breakdown before the first iteration
     init_ok = torch.isfinite(relres0) & torch.isfinite(rz)
-    status = torch.where(init_ok, code(RUNNING), code(BREAKDOWN))
+    status = torch.where(init_ok, codes[RUNNING], codes[BREAKDOWN])
     it = torch.zeros((), dtype=torch.int64, device=dev)
     best = relres0
-    since_best = code(0)
+    since_best = torch.zeros((), dtype=torch.int32, device=dev)
     if record_history:
         hist = torch.full((maxiter + 1,), float("nan"), dtype=b.dtype,
                           device=dev)
@@ -158,8 +183,19 @@ def _pcg_device(spmv: Callable[[torch.Tensor], torch.Tensor],
     else:
         hist = torch.zeros((0,), dtype=b.dtype, device=dev)
 
-    while bool(((rnorm / bnorm >= rtol) & (it < maxiter)
-                & (status == RUNNING)).item()):
+    def live(state) -> torch.Tensor:
+        """The reference's ``cond``: whether the next step is taken."""
+        _, _, _, _, _, rnorm_, it_, status_, _, _, _, bnorm_ = state
+        return ((rnorm_ / bnorm_ >= rtol) & (it_ < maxiter)
+                & (status_ == RUNNING))
+
+    def step(state):
+        """One PCG step, a no-op on everything that outlives the stop once
+        ``live`` is False; ``r`` and ``p`` are never read for a result after
+        the stop and may then hold anything."""
+        (x, x_prev, r, p, rz, rnorm, it, status, best, since_best, hist,
+         bnorm) = state
+        active = live(state)
         ap = spmv(p)
         pap = torch.dot(p, ap)
         alpha = rz / pap
@@ -171,34 +207,52 @@ def _pcg_device(spmv: Callable[[torch.Tensor], torch.Tensor],
         p2 = z + beta * p
         rnorm2 = torch.linalg.vector_norm(r2)
         relres2 = rnorm2 / bnorm
-        # pap > 0 is False for NaN pap too.  A broken step leaves the loop
-        # (status leaves RUNNING) and its poisoned r, p are never read; the
-        # rollback to x_prev happens once, after the loop.
+        # pap > 0 is False for NaN pap too.  A broken step stops the loop
+        # (status leaves RUNNING) and its poisoned x, r, p are never read
+        # for a result; the rollback to x_prev happens once, after the loop.
         ok = (pap > 0) & torch.isfinite(rnorm2) & torch.isfinite(rz2)
-        rz = torch.where(ok, rz2, rz)
-        rnorm = torch.where(ok, rnorm2, rnorm)
-        it = torch.where(ok, it + 1, it)
+        ok_live = ok & active
+        rz = torch.where(ok_live, rz2, rz)
+        rnorm = torch.where(ok_live, rnorm2, rnorm)
+        it = torch.where(ok_live, it + 1, it)
         improved = relres2 < best
-        diverged = ok & (relres2 > divergence_factor * best)
+        diverged = ok_live & (relres2 > divergence_factor * best)
         since_best = torch.where(
-            ok, torch.where(improved, code(0), since_best + 1), since_best)
-        stagnated = ok & (since_best >= stagnation_window)
-        best = torch.where(ok, torch.minimum(best, relres2), best)
+            ok_live, torch.where(improved, 0, since_best + 1), since_best)
+        stagnated = ok_live & (since_best >= stagnation_window)
+        best = torch.where(ok_live, torch.minimum(best, relres2), best)
         status = torch.where(
-            ~ok, code(BREAKDOWN),
-            torch.where(diverged, code(DIVERGED),
-                        torch.where(stagnated, code(STAGNATED), status)))
+            active,
+            torch.where(~ok, BREAKDOWN,
+                        torch.where(diverged, DIVERGED,
+                                    torch.where(stagnated, STAGNATED,
+                                                status))),
+            status)
         if record_history:
-            hist[it] = torch.where(ok, relres2, hist[it])
-        x_prev, x, r, p = x, x2, r2, p2
+            # index_put by a device index (a 0-d index would be read on
+            # the host); a stopped step writes hist[it] back unchanged
+            row = it.view(1)
+            hist.index_put_((row,), torch.where(ok_live, relres2,
+                                                hist.index_select(0, row)))
+        x_prev = torch.where(active, x, x_prev)
+        x = torch.where(active, x2, x)
+        return (x, x_prev, r2, p2, rz, rnorm, it, status, best, since_best,
+                hist, bnorm)
+
+    loop = _loop(loops, steps_per_read, "single", rtol, maxiter,
+                 record_history, divergence_factor, stagnation_window)
+    state, _ = loop.run(
+        (x, x, r, p, rz, rnorm, it, status, best, since_best, hist, bnorm),
+        step, live, eager=eager)
+    x, x_prev, _, _, _, rnorm, it, status, _, _, hist, _ = state
 
     # a BREAKDOWN exit left the poisoned update in x; report the last
     # finite iterate instead
     x = torch.where(status == BREAKDOWN, x_prev, x)
     relres = rnorm / bnorm
     status = torch.where(status == RUNNING,
-                         torch.where(relres < rtol, code(CONVERGED),
-                                     code(MAXITER)),
+                         torch.where(relres < rtol, codes[CONVERGED],
+                                     codes[MAXITER]),
                          status)
     return x, it, relres, status, hist
 
@@ -262,7 +316,7 @@ def _monitor_defaults(maxiter, divergence_factor, stagnation_window):
 
 
 def _batched_step(spmv, precond, x, r, p, rz, active, best, since, bnorm,
-                  codes, status, divergence_factor, stagnation_window):
+                  status, divergence_factor, stagnation_window):
     """One guarded PCG step on every column of a slab.
 
     Shared by the batched and the slab loop, so both perform the identical
@@ -296,9 +350,9 @@ def _batched_step(spmv, precond, x, r, p, rz, active, best, since, bnorm,
     stagnated = ok & (since >= stagnation_window) & ~diverged
     best = torch.where(ok, torch.minimum(best, relres2), best)
     status = torch.where(
-        broke, codes[BREAKDOWN],
-        torch.where(diverged, codes[DIVERGED],
-                    torch.where(stagnated, codes[STAGNATED], status)))
+        broke, BREAKDOWN,
+        torch.where(diverged, DIVERGED,
+                    torch.where(stagnated, STAGNATED, status)))
     return (x, r, p, rz, best, since, status, ok, relres2,
             ~diverged & ~stagnated)
 
@@ -335,14 +389,19 @@ def _pcg_batched_device(spmv: Callable[[torch.Tensor], torch.Tensor],
                         maxiter: int = 10_000,
                         record_history: bool = False,
                         divergence_factor: float | None = DIVERGENCE_FACTOR,
-                        stagnation_window: int | None = STAGNATION_WINDOW):
+                        stagnation_window: int | None = STAGNATION_WINDOW,
+                        *, steps_per_read: int | None = None,
+                        loops: LoopCache | None = None, eager: bool = False):
     """Device core of ``pcg_batched``: tensors in, tensors out.
 
     Returns ``(x, iters, relres, n_steps, status, history)``; ``n_steps``
     is a host int, the rest are tensors on ``b``'s device.  Per-column
     health monitoring mirrors ``_pcg_device`` (see ``_batched_step``); a
     broken column deactivates with its terminal status while its healthy
-    neighbours' float sequences stay bitwise untouched.
+    neighbours' float sequences stay bitwise untouched.  ``n_steps`` counts
+    the trips the reference's loop takes, not the masked steps of the last
+    block.  ``steps_per_read``, ``loops`` and ``eager`` as for
+    ``_pcg_device``.
     """
     divergence_factor, stagnation_window = _monitor_defaults(
         maxiter, divergence_factor, stagnation_window)
@@ -363,36 +422,53 @@ def _pcg_batched_device(spmv: Callable[[torch.Tensor], torch.Tensor],
                                                           codes)
     iters = torch.zeros(nb, dtype=torch.int32, device=b.device)
     since = torch.zeros(nb, dtype=torch.int32, device=b.device)
+    steps = torch.zeros((), dtype=torch.int64, device=b.device)
     best = relres0
     if record_history:
         hist = torch.full((maxiter + 1, nb), float("nan"), dtype=b.dtype,
                           device=b.device)
         hist[0] = relres0
-        lanes = torch.arange(nb, device=b.device)
     else:
         hist = torch.zeros((0, nb), dtype=b.dtype, device=b.device)
 
-    step = 0
-    while step < maxiter and bool(active.any().item()):
+    def live(state) -> torch.Tensor:
+        """The reference's ``cond``: any column active, trips < maxiter."""
+        return state[4].any() & (state[6] < maxiter)
+
+    def step(state):
+        """One trip of the reference's loop while ``live``; a no-op after
+        (every column then runs with ``active`` False)."""
+        x, r, p, rz, active, iters, steps, status, best, since, hist, \
+            bnorm = state
+        go = live(state)
         (x, r, p, rz, best, since, status, ok, relres2,
-         healthy) = _batched_step(spmv, precond, x, r, p, rz, active, best,
-                                  since, bnorm, codes, status,
+         healthy) = _batched_step(spmv, precond, x, r, p, rz, active & go,
+                                  best, since, bnorm, status,
                                   divergence_factor, stagnation_window)
         iters = iters + ok.to(torch.int32)
         if record_history:
             # a column records its residual at row == its own iteration
             # count while it steps; stopped columns keep their NaN padding
-            row = iters.long()
-            hist[row, lanes] = torch.where(ok, relres2, hist[row, lanes])
-        active = ok & (relres2 >= rtol) & healthy
-        step += 1
+            row = iters.long().view(1, nb)
+            hist.scatter_(0, row, torch.where(ok, relres2,
+                                              hist.gather(0, row)[0])[None])
+        active = torch.where(go, ok & (relres2 >= rtol) & healthy, active)
+        return (x, r, p, rz, active, iters, steps + go.long(), status, best,
+                since, hist, bnorm)
+
+    loop = _loop(loops, steps_per_read, "batched", rtol, maxiter,
+                 record_history, divergence_factor, stagnation_window, nb)
+    state, _ = loop.run(
+        (x, r, p, rz, active, iters, steps, status, best, since, hist,
+         bnorm), step, live, eager=eager)
+    x, r, _, _, _, iters, steps, status, _, _, hist, _ = state
     relres = torch.linalg.vector_norm(r, dim=0) / bnorm
     # columns still RUNNING ended healthily: converged or out of budget
     status = torch.where(status == RUNNING,
                          torch.where(relres < rtol, codes[CONVERGED],
                                      codes[MAXITER]),
                          status)
-    return x, iters, relres, step, status, hist
+    return x, iters, relres, int(steps), status, hist
 
 
 def pcg_batched(spmv: Callable[[torch.Tensor], torch.Tensor],
@@ -472,7 +548,9 @@ def _pcg_slab_device(spmv: Callable[[torch.Tensor], torch.Tensor],
                      maxiter: int = 10_000,
                      quantum: int = 16,
                      divergence_factor: float | None = DIVERGENCE_FACTOR,
-                     stagnation_window: int | None = STAGNATION_WINDOW
+                     stagnation_window: int | None = STAGNATION_WINDOW,
+                     *, steps_per_read: int | None = None,
+                     loops: LoopCache | None = None, eager: bool = False
                      ) -> tuple[SlabState, int]:
     """Advance a PCG slab by at most ``quantum`` iterations.
 
@@ -482,7 +560,9 @@ def _pcg_slab_device(spmv: Callable[[torch.Tensor], torch.Tensor],
     ``_pcg_batched_device``'s, plus a per-column ``iters < maxiter`` cutoff
     (columns enter the slab at different times).  Returns
     ``(new_state, steps)``: ``fresh`` cleared, every inactive column's
-    ``status`` definite, ``steps`` the loop trips taken (a host int).
+    ``status`` definite, ``steps`` the loop trips taken (a host int; the
+    masked steps of the last block are not trips).  ``steps_per_read``,
+    ``loops`` and ``eager`` as for ``_pcg_device``.
     """
     divergence_factor, stagnation_window = _monitor_defaults(
         maxiter, divergence_factor, stagnation_window)
@@ -506,16 +586,37 @@ def _pcg_slab_device(spmv: Callable[[torch.Tensor], torch.Tensor],
     best = torch.where(fresh, relres0, best)
     since_best = torch.where(fresh, 0, since_best)
 
-    step = 0
-    while step < quantum and bool(active.any().item()):
+    def live(state) -> torch.Tensor:
+        """Any column active and trips < quantum (``limit``)."""
+        return state[5].any() & (state[11] < state[12])
+
+    def step(state):
+        """One trip while ``live``; a no-op after (see the batched loop)."""
+        (x, r, p, rz, bnorm, active, iters, relres, status, best,
+         since_best, steps, limit) = state
+        go = live(state)
         (x, r, p, rz, best, since_best, status, ok, relres2,
-         healthy) = _batched_step(spmv, precond, x, r, p, rz, active, best,
-                                  since_best, bnorm, codes, status,
+         healthy) = _batched_step(spmv, precond, x, r, p, rz, active & go,
+                                  best, since_best, bnorm, status,
                                   divergence_factor, stagnation_window)
         iters = iters + ok.to(torch.int32)
         relres = torch.where(ok, relres2, relres)
-        active = ok & (relres2 >= rtol) & (iters < maxiter) & healthy
-        step += 1
+        active = torch.where(
+            go, ok & (relres2 >= rtol) & (iters < maxiter) & healthy,
+            active)
+        return (x, r, p, rz, bnorm, active, iters, relres, status, best,
+                since_best, steps + go.long(), limit)
+
+    # the quantum rides in the state, so one captured block serves every
+    # quantum
+    zero = torch.zeros((), dtype=torch.int64, device=r.device)
+    loop = _loop(loops, steps_per_read, "slab", rtol, maxiter, False,
+                 divergence_factor, stagnation_window, r.shape[1])
+    state, _ = loop.run(
+        (x, r, p, rz, bnorm, active, iters, relres, status, best,
+         since_best, zero, zero + quantum), step, live, eager=eager)
+    (x, r, p, rz, bnorm, active, iters, relres, status, best, since_best,
+     steps, _) = state
     # every inactive column leaves with a definite status: terminal codes
     # set in the loop are kept; an inactive RUNNING column ended healthily
     status = torch.where(active | (status != RUNNING), status,
@@ -525,4 +626,4 @@ def _pcg_slab_device(spmv: Callable[[torch.Tensor], torch.Tensor],
                     iters=iters, relres=relres,
                     fresh=torch.zeros_like(fresh), status=status, best=best,
                     since_best=since_best)
-    return out, step
+    return out, int(steps)

@@ -13,6 +13,12 @@ and the slab primitives of the serving layer, in both layouts.
                         (``layout="index"``), on the device
     SpMV operand        SELL-w or ELL packing of the matrix in the solve
                         layout, on the device
+    PCG loops           one ``device_loop.BlockLoop`` per (loop, rtol,
+                        maxiter, record_history, divergence_factor,
+                        stagnation_window, steps per read[, slab width])
+                        signature in ``_pcg_cache``: on the card the CUDA
+                        graph of a block of PCG steps, captured at the
+                        signature's first solve and replayed after
 
 ``plan.solve(b)`` does no host-side setup: it embeds ``b`` into the solve
 layout, runs the PCG loop on the device (the trisolve and SELL-w SpMV
@@ -22,7 +28,8 @@ block in one loop (the batched kernels), and ``new_slab_state`` /
 ``run_slab`` / ``solve_slab`` are the resident-slab primitives that
 ``repro_torch.serve`` drives.  ``plan.refactor(a_new)`` re-runs only the
 numeric factorization and repack for a matrix with the same sparsity
-pattern.
+pattern, and writes the new values into the device tensors the captured
+graphs read, so no graph is captured again.
 
 The plan runs on the device it is given (default ``"cuda"``, which raises
 without a CUDA device).  The mesh and static validation belong to later
@@ -42,6 +49,7 @@ from ..kernels.config import DEFAULT_DEVICE, resolve_device
 from . import sell
 from .coloring import (_validate_block_size, build_blocks, color_blocks,
                        multicolor_ordering, pad_system)
+from .device_loop import LoopCache
 from .graph import adjacency_lists, level_sets, permute_system
 from .hbmc import _validate_w, hbmc_from_bmc, pad_system_hbmc
 from .ic0 import FactorBreakdownError, ic0_refactor, ic0_structure
@@ -248,7 +256,9 @@ class SolverPlan:
     Build with ``build_plan(a, ...)``, or with ``SolverPlan.from_arrays``
     from packed tables made elsewhere.  ``setup_count`` counts host-side
     setup passes (the initial build and every ``refactor``); ``solve`` never
-    changes it.
+    changes it.  ``_capture_count`` counts the CUDA graphs captured for
+    the PCG loops (the reference's ``_trace_count``): one per signature,
+    none added by a warm solve or by ``refactor``.
     """
 
     def __init__(self, a: sp.spmatrix, method: str = "hbmc",
@@ -319,6 +329,11 @@ class SolverPlan:
         self._np_dtype = np.dtype(_NP_DTYPES[dtype])
         self.setup_count = 0
         self.refactor_count = 0
+        self._pcg_cache = LoopCache()
+
+    @property
+    def _capture_count(self) -> int:
+        return self._pcg_cache.captures
 
     @classmethod
     def from_arrays(cls, arrays: dict,
@@ -480,10 +495,14 @@ class SolverPlan:
 
         Re-runs the value-dependent pipeline (permute values, IC(0) numeric
         phase over the cached structure, repack, transfer) while ordering,
-        rounds, layout and the IC(0) symbolic analysis stay cached, and so
-        do the step tables' barrier-free segments where the repacked
-        ``cols`` are unchanged.  Raises ValueError if ``a_new``'s sparsity
-        pattern differs.
+        rounds, layout and the IC(0) symbolic analysis stay cached.  Where
+        the repacked index tensors are unchanged (a structure-identical
+        matrix gives the same ones) the new factor and SpMV values are
+        written in place into the device tensors the captured PCG graphs
+        read, and the step tables keep their barrier-free segments;
+        otherwise the new tensors replace them and ``_pcg_cache`` is
+        cleared, as the reference clears its closed-over jits.  Raises
+        ValueError if ``a_new``'s sparsity pattern differs.
         """
         if self._sysd is None:
             raise ValueError("a plan made by from_arrays has no setup state "
@@ -503,16 +522,40 @@ class SolverPlan:
         l_bar = self._factor(a_bar)
         self._sysd.a_bar = a_bar
         t1 = time.perf_counter()
+        old = (self._precond, self._rm, self._spmv_vals, self._spmv_cols)
         old_tables = self._step_tables()
         self._build_operators(l_bar)
-        for was, now in zip(old_tables, self._step_tables()):
-            if "segments" in vars(was) and torch.equal(was.cols, now.cols):
-                now.segments = was.segments
+        if self._same_indices(old_tables, old[3]):
+            # the captured graphs read the old tensors: the new values go
+            # into them, and the tables keep their segments
+            for was, now in zip(old_tables, self._step_tables()):
+                was.vals.copy_(now.vals)
+                was.dinv.copy_(now.dinv)
+            old[2].copy_(self._spmv_vals)
+            self._precond, self._rm, self._spmv_vals, self._spmv_cols = old
+        else:
+            for was, now in zip(old_tables, self._step_tables()):
+                if "segments" in vars(was) and torch.equal(was.cols,
+                                                           now.cols):
+                    now.segments = was.segments
+            self._pcg_cache.clear()   # new operand addresses: recapture
         t2 = time.perf_counter()
         self.setup_count += 1
         self.refactor_count += 1
         return SetupBreakdown(ordering=0.0, factor=t1 - t0, pack=t2 - t1,
                               total=t2 - t0)
+
+    def _same_indices(self, old_tables: list,
+                      old_spmv_cols: torch.Tensor) -> bool:
+        """Whether the freshly built operators have the old ones' index
+        tensors and value shapes, so their values can be written in place."""
+        same = torch.equal(old_spmv_cols, self._spmv_cols) and all(
+            was.vals.shape == now.vals.shape
+            and was.dinv.shape == now.dinv.shape
+            and all(torch.equal(getattr(was, f), getattr(now, f))
+                    for f in ("cols", "pos", "rows") if hasattr(was, f))
+            for was, now in zip(old_tables, self._step_tables()))
+        return same and old_spmv_cols.shape == self._spmv_cols.shape
 
     # -- solving ------------------------------------------------------------
 
@@ -626,7 +669,7 @@ class SolverPlan:
             self._spmv_batched, self._precond.apply_batched, state,
             rtol=rtol, maxiter=maxiter, quantum=quantum,
             divergence_factor=divergence_factor,
-            stagnation_window=stagnation_window)
+            stagnation_window=stagnation_window, loops=self._pcg_cache)
 
     def solve_slab(self, b: np.ndarray, slab_width: int = 1,
                    rtol: float = 1e-7, maxiter: int = 10_000,
@@ -698,7 +741,7 @@ class SolverPlan:
         t1 = time.perf_counter()
         x, it, relres, status, hist = _pcg_device(
             self._spmv, self._precond, b_dev, rtol=rtol, maxiter=maxiter,
-            record_history=record_history)
+            record_history=record_history, loops=self._pcg_cache)
         self._sync()
         t2 = time.perf_counter()
         x_out = self._extract(x)
@@ -721,7 +764,8 @@ class SolverPlan:
         t1 = time.perf_counter()
         x, iters, relres, step, status, hist = _pcg_batched_device(
             self._spmv_batched, self._precond.apply_batched, b_dev,
-            rtol=rtol, maxiter=maxiter, record_history=record_history)
+            rtol=rtol, maxiter=maxiter, record_history=record_history,
+            loops=self._pcg_cache)
         self._sync()
         t2 = time.perf_counter()
         x_out = self._extract(x)

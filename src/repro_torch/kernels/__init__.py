@@ -69,3 +69,17 @@ def reset_launch_counts() -> None:
     """Zero the wrapper-call and the CUDA-launch counters."""
     for mod, attr in (*_COUNTED.values(), *_CUDA_COUNTED.values()):
         setattr(mod, attr, 0)
+
+
+def _counter_values() -> dict[tuple, int]:
+    """Every counter's value, keyed by (module, attribute)."""
+    return {(mod, attr): getattr(mod, attr) for mod, attr in
+            (*_COUNTED.values(), *_CUDA_COUNTED.values())}
+
+
+def _add_counter_values(delta: dict[tuple, int], times: int = 1) -> None:
+    """Add ``times`` x ``delta`` (from ``_counter_values`` differences) to
+    the counters: a CUDA graph replay runs launches that no wrapper call
+    issued (``core.device_loop``)."""
+    for (mod, attr), d in delta.items():
+        setattr(mod, attr, getattr(mod, attr) + times * d)

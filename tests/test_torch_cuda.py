@@ -9,11 +9,17 @@ Tolerance: max relative error 1e-12 in f64, 1e-5 in f32 -- the kernels sum
 over K in order with each product rounded, the plain versions use PyTorch's
 reduction order.
 """
+import math
+
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 from repro_torch import kernels
+from repro_torch.core import device_loop
+from repro_torch.core.iccg import (_pcg_batched_device, _pcg_device,
+                                   _pcg_slab_device)
 from repro_torch.core import (PAPER_PROBLEMS, PAPER_SHIFTS, build_plan,
                               paper_problem)
 from repro_torch.core.matrices import laplace_2d
@@ -37,6 +43,26 @@ TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 def _launched(**counts):
     """The launch counts of a run that launched only ``counts``."""
     return {**dict.fromkeys(kernels.launch_counts(), 0), **counts}
+
+
+def _reset_counts():
+    kernels.reset_launch_counts()
+    device_loop.reset_loop_counts()
+
+
+def _blocks(trips):
+    """The PCG loop's blocks since ``_reset_counts``: ``ceil(trips / k)``
+    of them, read one flag each; the first solve of a signature runs its
+    first block eagerly and captures it, the rest are replays.  Every block
+    launches k steps' kernels, masked steps included, so a solve launches
+    ``1 + k * blocks`` preconditioner applies (one before the loop)."""
+    k = device_loop._STEPS_PER_READ
+    loops = device_loop.loop_counts()
+    blocks = loops["blocks"]
+    assert blocks == math.ceil(trips / k)
+    assert loops["reads"] == blocks + 1
+    assert loops["replays"] == blocks - loops["captures"]
+    return k, blocks
 
 
 @pytest.fixture
@@ -104,14 +130,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
 def test_solve_on_card_matches_cpu(cuda):
     a = laplace_2d(30, 27)
     b = np.random.default_rng(1).normal(size=a.shape[0])
-    kernels.reset_launch_counts()
+    _reset_counts()
     rep = build_plan(a, block_size=8, w=4, device=cuda).solve(b)
     counts = kernels.launch_counts()
+    k, blocks = _blocks(rep.result.iterations)
+    assert device_loop.loop_counts()["captures"] == 1
     ref = build_plan(a, block_size=8, w=4, device="cpu").solve(b)
     assert rep.result.status == ref.result.status == "CONVERGED"
     assert abs(rep.result.iterations - ref.result.iterations) <= 1
-    assert counts == _launched(hbmc_trisolve_fused=rep.result.iterations + 1,
-                               sell_spmv=rep.result.iterations)
+    assert counts == _launched(hbmc_trisolve_fused=1 + k * blocks,
+                               sell_spmv=k * blocks)
     np.testing.assert_allclose(rep.x, ref.x, rtol=1e-6, atol=1e-8)
     assert rep.backend == "cuda"
 
@@ -238,16 +266,18 @@ def test_batched_spmv_nan_reaches_every_row_that_reads_it(cuda, k, nb):
 def test_solve_batched_on_card_matches_cpu(cuda):
     a = laplace_2d(30, 27)
     b = np.random.default_rng(2).normal(size=(a.shape[0], 3))
-    kernels.reset_launch_counts()
+    _reset_counts()
     rep = build_plan(a, block_size=8, w=4, device=cuda).solve_batched(b)
     counts = kernels.launch_counts()
+    k, blocks = _blocks(rep.result.n_steps)
     ref = build_plan(a, block_size=8, w=4, device="cpu").solve_batched(b)
     assert rep.result.status_names == ["CONVERGED"] * 3
     np.testing.assert_array_equal(rep.result.iterations,
                                   ref.result.iterations)
+    assert rep.result.n_steps == ref.result.n_steps
     assert counts == _launched(
-        hbmc_trisolve_fused_batched=rep.result.n_steps + 1,
-        sell_spmv_batched=rep.result.n_steps)
+        hbmc_trisolve_fused_batched=1 + k * blocks,
+        sell_spmv_batched=k * blocks)
     np.testing.assert_allclose(rep.x, ref.x, rtol=1e-9, atol=1e-11)
 
 
@@ -315,15 +345,16 @@ def test_index_solve_on_card_matches_cpu(cuda, fmt):
     a = laplace_2d(30, 27)
     b = np.random.default_rng(4).normal(size=a.shape[0])
     knobs = dict(block_size=8, w=4, layout="index", spmv_format=fmt)
-    kernels.reset_launch_counts()
+    _reset_counts()
     rep = build_plan(a, device=cuda, **knobs).solve(b)
     counts = kernels.launch_counts()
+    k, blocks = _blocks(rep.result.iterations)
     ref = build_plan(a, device="cpu", **knobs).solve(b)
     assert rep.result.status == ref.result.status == "CONVERGED"
     assert abs(rep.result.iterations - ref.result.iterations) <= 1
     assert counts == _launched(
-        hbmc_trisolve=2 * (rep.result.iterations + 1),
-        sell_spmv=rep.result.iterations if fmt == "sell" else 0)
+        hbmc_trisolve=2 * (1 + k * blocks),
+        sell_spmv=k * blocks if fmt == "sell" else 0)
     np.testing.assert_allclose(rep.x, ref.x, rtol=1e-6, atol=1e-8)
 
 
@@ -604,3 +635,67 @@ def test_trisolve_kernels_ignore_the_output_buffers_old_values(cuda, fused):
         z = fn(*t, q)
         assert z.data_ptr() == ptr        # the NaN block was reused
         assert torch.equal(z, ref(*t, q))
+
+
+# -- the PCG loops as replayed CUDA graphs ------------------------------------
+
+def _embed(plan, b):
+    b_bar = np.zeros((plan.n_padded,) + b.shape[1:])
+    b_bar[plan._perm] = b
+    return plan._embed(b_bar)
+
+
+def _same(got, want):
+    for g, w in zip(got, want):
+        if isinstance(w, torch.Tensor):
+            torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+        else:
+            assert g == w
+
+
+@pytest.mark.parametrize("layout", ["round_major", "index"])
+def test_replayed_loops_bitwise_eager_on_card(cuda, layout):
+    """The three loops replayed as CUDA graphs give the eager block's bits
+    at k = 1, 3 and 8, on the signature's first solve (an eager block, the
+    capture, replays) and on a warm one (replays only); B = 8 runs B4's
+    vector variant, whose pick reads the state's alignment."""
+    a = laplace_2d(30, 27)
+    plan = build_plan(a, block_size=8, w=4, layout=layout, device=cuda)
+    rng = np.random.default_rng(6)
+    b = _embed(plan, rng.normal(size=a.shape[0]))
+    b8 = _embed(plan, rng.normal(size=(a.shape[0], 8)))
+    single = (plan._spmv, plan._precond)
+    batched = (plan._spmv_batched, plan._precond.apply_batched)
+    for k in (1, 3, 8):
+        runs = {
+            "single": lambda **kw: _pcg_device(*single, b,
+                                               record_history=True, **kw),
+            "batched": lambda **kw: _pcg_batched_device(
+                *batched, b8, record_history=True, **kw),
+            "slab": lambda **kw: _pcg_slab_device(
+                *batched, plan.new_slab_state(8)._replace(r=b8.clone()),
+                quantum=20, **kw)[0],
+        }
+        for name, run in runs.items():
+            eager = run(steps_per_read=k, eager=True)
+            for _ in range(2):
+                _same(run(steps_per_read=k, loops=plan._pcg_cache), eager)
+    assert plan._capture_count == len(plan._pcg_cache) == 9
+
+
+def test_capture_count_stays_one_across_warm_solves_and_refactor(cuda):
+    a = laplace_2d(30, 27)
+    b = np.random.default_rng(7).normal(size=a.shape[0])
+    plan = build_plan(a, block_size=8, w=4, device=cuda)
+    first = plan.solve(b)
+    assert plan._capture_count == 1
+    warm = plan.solve(b)
+    assert plan._capture_count == 1
+    np.testing.assert_array_equal(warm.x, first.x)
+    a2 = (a + 0.37 * sp.diags(a.diagonal())).tocsr()
+    plan.refactor(a2)
+    rep = plan.solve(b)
+    assert plan._capture_count == len(plan._pcg_cache) == 1
+    cold = build_plan(a2, block_size=8, w=4, device=cuda).solve(b)
+    assert rep.result.iterations == cold.result.iterations
+    np.testing.assert_array_equal(rep.x, cold.x)

@@ -431,11 +431,17 @@ def test_refactor_keeps_the_tables_segments(monkeypatch, layout):
     n_calls = len(calls)
     assert n_calls == (1 if layout == "round_major" else 2)
     before = plan._step_tables()
+    old_vals = [t.vals.clone() for t in before]
     plan.refactor(sp.csr_matrix(a) * 2.0)
     after = plan._step_tables()
-    for was, now in zip(before, after):
-        assert now is not was and "segments" in vars(now)
-        assert now.segments is was.segments
+    fresh = build_plan(sp.csr_matrix(a) * 2.0, layout=layout,
+                       **KNOBS)._step_tables()
+    for was, now, old, new in zip(before, after, old_vals, fresh):
+        # the new values go into the same tables (the tensors the captured
+        # PCG graphs read), which keep their segments
+        assert now is was and "segments" in vars(now)
+        assert not torch.equal(now.vals, old)
+        assert torch.equal(now.vals, new.vals)
         np.testing.assert_array_equal(
             now.segments, barrier_segments(now.cols.numpy(),
                                            fused=layout == "round_major"))
