@@ -22,7 +22,11 @@ its last line:
    bitwise (max error 0.0) to its plain version and to the same kernel cut
    into one launch per step, with one CUDA launch per segment (the
    segment count of each plan is printed); 20 repeated calls of each on
-   the 1M tables give one result bit for bit.
+   the 1M tables give one result bit for bit.  The shard step of the
+   mesh path (single RHS and batched, on the same tables, f64 and f32):
+   its 2S launches over the whole lane range on a NaN-filled state
+   bitwise its plain version and B1's / B3's per-step cut, and two lane
+   blocks run in turn with the gather done by hand bitwise B1 / B3.
 3. Main path: ``build_plan`` + ``plan.solve`` on thermal2 at n = 1,048,576
    (laplace_2d(1024, 1024) with a log-normal coefficient), HBMC, block 16,
    w 8.  CONVERGED in 48 +- 2 iterations, true relres < 1e-6 on the host.
@@ -86,6 +90,20 @@ its last line:
    capture's seconds, the replayed result bitwise the eager one; both
    forms under the profiler, with the device's busy share under it and
    without it.
+3f. Mesh, run last: a one-rank process group (NCCL on the card) and a
+   ``("data",)`` ``DeviceMesh``; ``build_plan(..., mesh=mesh,
+   lane_multiple=4)`` on the 1M matrix (the lane layout of a 4-way
+   mesh).  ``plan.solve``: CONVERGED in 48 +- 2 iterations, true relres <
+   1e-6, x bitwise the single-device plan built with ``lane_multiple=4``;
+   ``plan.solve_batched`` on the 8 columns: each at its mesh
+   ``plan.solve`` count and bitwise the single-device plan.  Launches:
+   2S shard steps per apply (``1 + k x blocks`` applies), ``k x blocks``
+   ``sell_spmv_block`` calls (B2 / B4), no B1 / B3; all-gathers 2S per
+   apply and one per SpMV; the loop captured as a CUDA graph with NCCL
+   inside ("graph: true").  ms per iteration beside the single-device
+   plan's, a ``refactor`` round trip keeping the capture, and the shard
+   steps' and ``sell_spmv_block``'s times against their plain versions
+   and bounds; then the group is destroyed.
 
 Its last lines: one JSON object with a row per kernel (``launches`` are
 wrapper calls on the main path, ``cuda_launches`` the CUDA launches they
@@ -118,6 +136,7 @@ BATCH_SIZES = (1, 2, 3, 8)  # widths of the batched kernel checks
 SERVE_REQUESTS, SERVE_QUANTUM = 24, 16
 LOOP_KS = (1, 4, 8, 16)     # steps per flag read timed in phase 4
 SMOOTHER_SWEEPS = 20
+MESH_LANE_MULTIPLE = 4      # phase 3f: the lane layout of a 4-way mesh
 
 KERNELS = {
     "hbmc_trisolve_fused": dict(
@@ -138,6 +157,17 @@ KERNELS = {
     "hbmc_trisolve_batched": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/hbmc_trisolve.cu",
         replaces="src/repro/kernels/hbmc_trisolve.py:111"),
+    # the mesh path: the shard step is the kernel of the reference's jnp
+    # per-device body of _dist_substitute_fused (no Pallas site)
+    "hbmc_trisolve_shard_step": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/hbmc_trisolve.cu",
+        replaces="src/repro/core/trisolve.py:262"),
+    "hbmc_trisolve_shard_step_batched": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/hbmc_trisolve.cu",
+        replaces="src/repro/core/trisolve.py:262"),
+    "sell_spmv_block": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/sell_spmv.cu",
+        replaces="src/repro/kernels/sell_spmv.py:137"),
 }
 NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
@@ -412,6 +442,92 @@ def check_repeats(fn, t, fused: bool, nb: int | None, seed: int,
         f"identical")
 
 
+def shard_apply(t, q, blocks: int = 1, fill: float = float("nan")):
+    """The fused apply of tables ``t`` as ``blocks`` lane blocks, one shard
+    step launch per step and block, each block on its own replica of y
+    (filled with ``fill``: a forward step must read the slices not yet
+    written as 0), each step's block entries copied to every replica by
+    hand (the all-gather of a mesh).  Returns the replicas."""
+    import torch
+
+    from repro_torch.kernels import (hbmc_trisolve_shard_step,
+                                     hbmc_trisolve_shard_step_batched)
+    s_, r_full = t.n_steps, t.lanes
+    r_loc = r_full // blocks
+    step = hbmc_trisolve_shard_step_batched if q.dim() == 3 else \
+        hbmc_trisolve_shard_step
+    shards = [tuple(u[:, i * r_loc:(i + 1) * r_loc].contiguous()
+                    for u in (t.cols, t.vals, t.dinv))
+              for i in range(blocks)]
+    ys = [torch.full((s_ * r_full,) + tuple(q.shape[2:]), fill,
+                     dtype=q.dtype, device=q.device) for _ in range(blocks)]
+    for g in range(2 * s_):
+        dest = (g if g < s_ else 2 * s_ - 1 - g) * r_full
+        for i, y in enumerate(ys):
+            step(*shards[i], q, y, g, i * r_loc)
+        for i, y in enumerate(ys):
+            chunk = slice(dest + i * r_loc, dest + (i + 1) * r_loc)
+            for other in ys:
+                if other is not y:
+                    other[chunk] = y[chunk]
+    return ys
+
+
+def check_shard_steps(plan, label: str, seed: int,
+                      sizes=(None, 3)) -> None:
+    """The shard step (single RHS for ``None`` in ``sizes``, else batched
+    at B) over the whole lane range on a NaN-filled y: bitwise its plain
+    version and B1's / B3's per-step cut; where the lanes split in two,
+    the two lane blocks run in turn with the gather done by hand, each
+    replica bitwise B1 / B3 with its segments."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels import (hbmc_trisolve_fused,
+                                     hbmc_trisolve_fused_batched,
+                                     hbmc_trisolve_shard_step_ref)
+    t = plan._precond.tables
+    dev, dt = plan.device, plan.dtype
+    rng = np.random.default_rng(seed)
+    split = t.lanes % 2 == 0
+    for nb in sizes:
+        q = torch.tensor(rng.normal(size=(t.n_steps, t.lanes) + (
+            () if nb is None else (nb,))), device=dev).to(dt)
+        before = sum(kernels.cuda_launch_counts().values())
+        (got,) = shard_apply(t, q)
+        launched = sum(kernels.cuda_launch_counts().values()) - before
+        y = torch.full_like(got, float("nan"))
+        for g in range(2 * t.n_steps):
+            hbmc_trisolve_shard_step_ref(t.cols, t.vals, t.dinv, q, y, g, 0)
+        b1 = hbmc_trisolve_fused if nb is None else \
+            hbmc_trisolve_fused_batched
+        cut = b1(t.cols, t.vals, t.dinv, q,
+                 segments=np.arange(2 * t.n_steps))
+        which = f"shard step on {label}" + ("" if nb is None else
+                                             f", B={nb}")
+        if dev.type == "cuda" and launched != 2 * t.n_steps:
+            raise AssertionError(f"{which}: {launched} CUDA launches for "
+                                 f"{2 * t.n_steps} steps")
+        if not torch.equal(got, y):
+            raise AssertionError(f"{which}: not bitwise its plain version")
+        if not torch.equal(got, cut):
+            raise AssertionError(f"{which}: not bitwise B1's / B3's "
+                                 f"per-step cut")
+        if split:
+            want = b1(t.cols, t.vals, t.dinv, q, segments=t.segments)
+            for rep in shard_apply(t, q, 2):
+                if not torch.equal(rep, want):
+                    raise AssertionError(f"{which}: a 2-way lane split is "
+                                         f"not bitwise B1 / B3")
+    widths = [1 if nb is None else nb for nb in sizes]
+    log(f"  {label:<28} shard step B={widths}: {2 * t.n_steps} launches "
+        f"an apply, bitwise the plain version "
+        f"and B1's / B3's per-step cut"
+        + ("; a 2-way lane split gathered by hand bitwise B1 / B3"
+           if split else f" (R = {t.lanes} odd: no 2-way split)"))
+
+
 def single_rhs_turns(fn, batched_fn, t, q, reps: int, device,
                      label: str) -> dict[str, float]:
     """B1 (``fn`` on fused tables ``t``) or B5 (on a sweep table), with
@@ -504,12 +620,14 @@ def profile_solve(plan, b, b_batched, tag: str = "") -> None:
                                      ProfilerActivity.CUDA]) as prof:
                 loop_s, _ = run(eager)
             by_name: dict[str, float] = {}
-            records = 0
+            spans = []
             for e in prof.events():
                 if e.device_type == torch.autograd.DeviceType.CUDA:
-                    records += 1
+                    spans.append((e.time_range.start, e.time_range.end,
+                                  e.name))
                     by_name[e.name] = by_name.get(e.name, 0.0) + \
                         e.time_range.elapsed_us() / 1e3
+            records = len(spans)
             wall = sorted(run(eager)[0] for _ in range(3))[1] * 1e3
             loop_ms = loop_s * 1e3
             how = "eager blocks" if eager else "replayed graphs"
@@ -531,6 +649,28 @@ def profile_solve(plan, b, b_batched, tag: str = "") -> None:
             for name, ms in sorted(by_name.items(),
                                    key=lambda kv: -kv[1])[:8]:
                 log(f"  {ms:9.3f}  {name[:90]}")
+            log("  device idle between records, by the record after the "
+                "gap: " + "; ".join(f"{ms:.3f} ms in {k} gaps before {name}"
+                                    for name, ms, k in
+                                    idle_by_next_kernel(spans)))
+
+
+def idle_by_next_kernel(spans, top: int = 4) -> list[tuple[str, float,
+                                                            int]]:
+    """Where a device timeline idles: ``spans`` are (start us, end us,
+    name) of device records; every gap between the end of all earlier
+    records and the next start is charged to the record after it.
+    Returns the ``top`` names by idle ms, as (name, ms, gaps)."""
+    idle: dict[str, list] = {}
+    end = None
+    for start, stop, name in sorted(spans):
+        if end is not None and start > end:
+            got = idle.setdefault(name[:60], [0.0, 0])
+            got[0] += (start - end) / 1e3
+            got[1] += 1
+        end = stop if end is None else max(end, stop)
+    return sorted(((n, ms, k) for n, (ms, k) in idle.items()),
+                  key=lambda t: -t[1])[:top]
 
 
 def graph_turns(plan, plan_idx, b, b8, reps: int) -> None:
@@ -668,11 +808,13 @@ def cuda_launches_want(on_card: bool, **counts) -> dict:
 
 
 def reset_counts() -> None:
-    """Zero the kernels' launch counters and the PCG loops' counters."""
+    """Zero the kernels' launch counters, the PCG loops' counters and the
+    mesh's all-gather counters."""
     from repro_torch import kernels
-    from repro_torch.core import device_loop
+    from repro_torch.core import device_loop, mesh
     kernels.reset_launch_counts()
     device_loop.reset_loop_counts()
+    mesh.reset_gather_counts()
 
 
 def loop_blocks(trips: list[int], label: str,
@@ -1124,6 +1266,305 @@ def smoother_phase(plan_idx, b, device: str) -> float:
     return sweep_ms
 
 
+def mesh_phase(a, plan_kw: dict, b, b8, iterations, on_card: bool,
+               reps: int) -> list[dict]:
+    """Phase 3f: the mesh path at world size 1 (NCCL on the card, gloo on
+    the CPU): ``build_plan(mesh=..., lane_multiple=4)`` on the main
+    matrix, ``solve`` and ``solve_batched`` bitwise the single-device plan
+    with the same lane multiple, with the launches and all-gathers of the
+    mesh path and none of B1 / B3; ms per iteration, whether the loops were
+    captured, a ``refactor`` round trip; then the shard steps' and
+    ``sell_spmv_block``'s times.  Returns their rows of the kernels line."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import build_plan
+    dev_type = "cuda" if on_card else "cpu"
+    kw = dict(plan_kw, lane_multiple=MESH_LANE_MULTIPLE)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl" if on_card else "gloo",
+                                init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1)
+        try:
+            mesh = init_device_mesh(dev_type, (1,), mesh_dim_names=("data",))
+            log(f"process group {dist.get_backend()}, world size "
+                f"{dist.get_world_size()}; mesh {mesh}")
+            t0 = time.perf_counter()
+            plan = build_plan(a, mesh=mesh, **kw)
+            setup_s = time.perf_counter() - t0
+            ref = build_plan(a, **kw)
+            t = plan._precond.tables
+            log(f"mesh plan: setup {setup_s:.3f} s, lanes "
+                f"{plan._precond.lanes} (lane_multiple "
+                f"{plan.lane_multiple}), this rank's tables "
+                f"{tuple(t.cols.shape)}, SELL block "
+                f"{tuple(plan._spmv_vals.shape)}")
+            launched = _mesh_solves(plan, ref, a, b, b8, iterations,
+                                    on_card, reps)
+            profile_solve(plan, b, b8, tag="mesh ")
+            rows = _mesh_kernel_times(plan, launched, reps)
+        finally:
+            dist.destroy_process_group()
+    log(f"process group destroyed: initialized={dist.is_initialized()}")
+    return rows
+
+
+def _mesh_solves(plan, ref, a, b, b8, iterations, on_card: bool,
+                 reps: int) -> dict:
+    """Phase 3f's solves; returns the launch counts of the kernels line."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from repro_torch import kernels
+    from repro_torch.core import device_loop, mesh as mesh_mod
+    n_steps = 2 * plan.n_rounds
+    reset_counts()
+    rep = plan.solve(b)
+    counts, cuda_counts = kernels.launch_counts(), kernels.cuda_launch_counts()
+    gathers = mesh_mod.gather_counts()
+    res = rep.result
+    k, blocks = loop_blocks([res.iterations], "mesh solve", on_card)
+    captured = device_loop.loop_counts()["captures"] == 1
+    true_relres = float(np.linalg.norm(b - a @ rep.x) / np.linalg.norm(b))
+    want = ref.solve(b)
+    log(f"mesh solve: status {res.status}, iterations {res.iterations} "
+        f"(single-device plan, lane_multiple {ref.lane_multiple}: "
+        f"{want.result.iterations}), true relres {true_relres:.3e}, "
+        f"{rep.solve_seconds:.3f} s; graph: {str(captured).lower()} "
+        f"({plan._capture_count} captured); launches {counts}; CUDA "
+        f"launches {cuda_counts}; all-gathers {gathers}")
+    if res.status != "CONVERGED" or not true_relres < 1e-6:
+        raise AssertionError(f"mesh solve ended {res.status}, true relres "
+                             f"{true_relres:.3e}")
+    if iterations is not None and abs(res.iterations - iterations) > \
+            ITER_BAND:
+        raise AssertionError(f"mesh solve: {res.iterations} iterations")
+    if (res.iterations != want.result.iterations
+            or not np.array_equal(rep.x, want.x)):
+        raise AssertionError("mesh solve is not bitwise the single-device "
+                             "plan's")
+    applies = 1 + k * blocks
+    want_counts = cuda_launches_want(
+        on_card, hbmc_trisolve_shard_step=n_steps * applies,
+        sell_spmv=k * blocks, sell_spmv_block=k * blocks)
+    if counts != want_counts or cuda_counts != want_counts:
+        raise AssertionError(f"mesh solve launches {counts} / CUDA "
+                             f"{cuda_counts}, expected {want_counts}")
+    if gathers != {"trisolve": n_steps * applies, "spmv": k * blocks}:
+        raise AssertionError(f"mesh solve all-gathers {gathers}")
+    if on_card and not captured:
+        raise AssertionError("the mesh loop was not captured")
+    single_rows = dict(counts=counts, cuda=cuda_counts)
+
+    reset_counts()
+    rep_b = plan.solve_batched(b8)
+    counts_b, cuda_b = kernels.launch_counts(), kernels.cuda_launch_counts()
+    gathers_b = mesh_mod.gather_counts()
+    res_b = rep_b.result
+    k, blocks_b = loop_blocks([res_b.n_steps], "mesh solve_batched", on_card)
+    want_b = ref.solve_batched(b8)
+    singles = [plan.solve(b8[:, j]).result.iterations
+               for j in range(b8.shape[1])]
+    log(f"mesh solve_batched B={b8.shape[1]}: statuses "
+        f"{res_b.status_names}, iterations {res_b.iterations.tolist()} "
+        f"(mesh plan.solve: {singles}), {rep_b.solve_seconds:.3f} s; "
+        f"launches {counts_b}; all-gathers {gathers_b}")
+    if (res_b.status_names != ["CONVERGED"] * b8.shape[1]
+            or res_b.iterations.tolist() != singles
+            or not np.array_equal(rep_b.x, want_b.x)
+            or not np.array_equal(res_b.iterations,
+                                  want_b.result.iterations)):
+        raise AssertionError("mesh solve_batched: not every column at its "
+                             "single-RHS count, or not bitwise the "
+                             "single-device plan")
+    applies_b = 1 + k * blocks_b
+    want_b_counts = cuda_launches_want(
+        on_card, hbmc_trisolve_shard_step_batched=n_steps * applies_b,
+        sell_spmv_batched=k * blocks_b, sell_spmv_block=k * blocks_b)
+    if counts_b != want_b_counts or cuda_b != want_b_counts:
+        raise AssertionError(f"mesh solve_batched launches {counts_b} / "
+                             f"CUDA {cuda_b}, expected {want_b_counts}")
+    if gathers_b != {"trisolve": n_steps * applies_b, "spmv": k * blocks_b}:
+        raise AssertionError(f"mesh solve_batched all-gathers {gathers_b}")
+
+    iter_ms = loop_ms(plan.solve, b, reps)
+    iter_b_ms = loop_ms(plan.solve_batched, b8, max(reps // 2, 1))
+    iter_ref_ms = loop_ms(ref.solve, b, reps)
+    log(f"mesh PCG iteration: {spread(iter_ms)} ms; single-device plan "
+        f"(lane_multiple {ref.lane_multiple}) in turn: "
+        f"{spread(iter_ref_ms)} ms")
+    log(f"mesh batched PCG iteration, B={b8.shape[1]}: {spread(iter_b_ms)}"
+        f" ms")
+    a2 = (a + 0.37 * sp.diags(a.diagonal())).tocsr()
+    captures = plan._capture_count
+    t0 = time.perf_counter()
+    plan.refactor(a2)
+    refactor_s = time.perf_counter() - t0
+    moved = plan.solve(b)
+    plan.refactor(a)
+    back = plan.solve(b)
+    true2 = float(np.linalg.norm(b - a2 @ moved.x) / np.linalg.norm(b))
+    log(f"mesh refactor to A + 0.37 diag(A) ({refactor_s:.3f} s; "
+        f"{moved.result.status} in {moved.result.iterations} it, true "
+        f"relres {true2:.3e}) and back ({back.result.iterations} it, bitwise "
+        f"the first solve: {np.array_equal(back.x, rep.x)}); captures "
+        f"{captures} -> {plan._capture_count}")
+    if (moved.result.status != "CONVERGED" or not true2 < 1e-6
+            or not np.array_equal(back.x, rep.x)
+            or plan._capture_count != captures):
+        raise AssertionError("mesh refactor round trip failed")
+    return dict(single=single_rows, batched=dict(counts=counts_b,
+                                                 cuda=cuda_b))
+
+
+def _mesh_kernel_times(plan, launched: dict, reps: int) -> list[dict]:
+    """The shard steps (one apply: 2S launches, no collective) and
+    ``sell_spmv_block`` on this rank's blocks at the mesh plan's shapes,
+    each against its plain version, bound and (for the SpMV) the cuSPARSE
+    product of the same rows; the mesh apply (shard steps and all-gathers)
+    beside them.  Returns their rows of the kernels line, with the
+    launches of the mesh solves (``launched``)."""
+    import warnings
+
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from repro_torch.core.mesh import axis_group
+    from repro_torch.core.sell import permute_round_major
+    from repro_torch.kernels import (hbmc_trisolve_shard_step,
+                                     hbmc_trisolve_shard_step_batched,
+                                     hbmc_trisolve_shard_step_ref,
+                                     sell_spmv_block, sell_spmv_ref)
+    t, pre = plan._precond.tables, plan._precond
+    dev, dt = plan.device, plan.dtype
+    _, size, rank = axis_group(plan.mesh, plan.mesh_axis)
+    lane0 = rank * t.lanes
+    s2 = 2 * t.n_steps
+    rng = np.random.default_rng(17)
+    rows = []
+    for name, fn, nb in (("hbmc_trisolve_shard_step",
+                          hbmc_trisolve_shard_step, None),
+                         ("hbmc_trisolve_shard_step_batched",
+                          hbmc_trisolve_shard_step_batched, BATCH)):
+        tail = () if nb is None else (nb,)
+        q = torch.tensor(rng.normal(size=(t.n_steps, pre.lanes) + tail),
+                         device=dev).to(dt)
+
+        def apply(step, y, q=q):
+            def run_steps():
+                for g in range(s2):
+                    step(t.cols, t.vals, t.dinv, q, y, g, lane0)
+                return y
+            return run_steps
+
+        y_k = torch.full((pre.m,) + tail, float("nan"), dtype=dt, device=dev)
+        y_p = torch.full_like(y_k, float("nan"))
+        got, want = apply(fn, y_k)(), apply(hbmc_trisolve_shard_step_ref,
+                                            y_p)()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: not bitwise its plain version at "
+                                 f"the mesh plan's shapes")
+        err = float((got - want).abs().max())
+        # as the mesh loop runs them: one CUDA graph of the 2S launches,
+        # replayed; and issued from the host, with their device time
+        ms = graph_ms(apply(fn, y_k), reps, dev)
+        host_ms = time_ms(apply(fn, y_k), reps, dev)
+        dev_ms = device_ms(apply(fn, y_k), reps, dev)
+        plain_ms = time_ms(apply(hbmc_trisolve_shard_step_ref, y_p),
+                           max(reps // 5, 1), dev)
+        def mesh_apply(q=q, nb=nb, tail=tail):
+            return (pre.apply_batched if nb else pre)(
+                q.reshape((pre.m,) + tail))
+
+        mesh_ms = time_ms(mesh_apply, reps, dev)
+        mesh_graph_ms = graph_ms(mesh_apply, reps, dev)
+        # this rank's tables once, its lanes of q once, its lanes of y
+        # written once
+        n_bytes = (t.cols.numel() * t.cols.element_size()
+                   + t.vals.numel() * t.vals.element_size()
+                   + t.dinv.numel() * t.dinv.element_size()
+                   + 2 * q.numel() // size * q.element_size())
+        bnd, by = bound(n_bytes, (2 * t.vals.numel() + 2 * t.dinv.numel())
+                        * (nb or 1), dt)
+        log(f"{name} (B={nb or 1}), one apply of {s2} launches on tables "
+            f"{tuple(t.cols.shape)}: kernel {ms:.4f} ms as a replayed graph "
+            f"({ms / s2 * 1e3:.2f} us a step), {host_ms:.4f} issued from "
+            f"the host (device {fmt_ms(dev_ms)} under the profiler), plain "
+            f"{plain_ms:.4f}, bound {bnd:.4f} ({by}, {n_bytes / 1e6:.1f} "
+            f"MB); the mesh apply with its {s2} all-gathers: "
+            f"{mesh_graph_ms:.4f} ms as a replayed graph, {mesh_ms:.4f} "
+            f"issued from the host")
+        which = "single" if nb is None else "batched"
+        rows.append(kernel_row(name, launched[which]["counts"][name],
+                               launched[which]["cuda"][name], err, ms,
+                               plain_ms, bnd, by, None))
+    sv, sc = plan._spmv_vals, plan._spmv_cols
+    x = torch.tensor(rng.normal(size=pre.m), device=dev).to(dt)
+    y = sell_spmv_block(sv, sc, x)
+    y_ref = sell_spmv_ref(sv, sc, x)
+    err = float((y - y_ref).abs().max())
+    if not rel_err(y, y_ref) <= TOL[str(dt)]:
+        raise AssertionError(f"sell_spmv_block disagrees with its plain "
+                             f"version: {rel_err(y, y_ref):.3e}")
+    ms = time_ms(lambda: sell_spmv_block(sv, sc, x), 4 * reps, dev)
+    plain_ms = time_ms(lambda: sell_spmv_ref(sv, sc, x), reps, dev)
+    # cuSPARSE on this rank's rows of the round-major matrix (rows past n
+    # are the zero slices' padding)
+    n_rows = sv.shape[0] * sv.shape[2]
+    lo, n = rank * n_rows, plan._spmv_n
+    a_rm = sp.csr_matrix(permute_round_major(plan._sysd.a_bar,
+                                             plan._rm))[lo:min(lo + n_rows,
+                                                                n)]
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "Sparse CSR tensor support")
+        warnings.filterwarnings("ignore", "Sparse invariant checks")
+        a_lib = torch.sparse_csr_tensor(
+            torch.tensor(a_rm.indptr, dtype=torch.int64),
+            torch.tensor(a_rm.indices, dtype=torch.int64),
+            torch.tensor(a_rm.data), size=(a_rm.shape[0], pre.m)).to(dev)
+    lib_err = rel_err(y[:a_rm.shape[0]], torch.mv(a_lib, x))
+    if not lib_err <= 1e-12:
+        raise AssertionError(f"sell_spmv_block disagrees with torch.mv on "
+                             f"CSR: {lib_err:.3e}")
+    lib_ms = time_ms(lambda: torch.mv(a_lib, x), 4 * reps, dev)
+    bnd, by = bound(spmv_bytes(sv, sc, x), 2 * sv.numel(), dt)
+    log(f"sell_spmv_block on slices {tuple(sv.shape)} of this rank: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f}, bound {bnd:.4f} ({by}), "
+        f"torch.mv CSR {lib_ms:.4f}")
+    rows.append(kernel_row("sell_spmv_block",
+                           launched["single"]["counts"]["sell_spmv_block"],
+                           launched["single"]["cuda"]["sell_spmv_block"],
+                           err, ms, plain_ms, bnd, by, lib_ms))
+    return rows
+
+
+def graph_ms(fn, reps: int, device) -> float:
+    """Mean ms per replay of one CUDA graph of ``fn`` (captured after a
+    warm-up call), with CUDA events; ``time_ms`` of ``fn`` off the card."""
+    import torch
+    if device.type != "cuda":
+        return time_ms(fn, reps, device)
+    fn()
+    torch.cuda.synchronize(device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, reps, device)
+
+
+def kernel_row(name, launches, cuda_launches, err, ms, plain_ms, bnd, by,
+               lib_ms) -> dict:
+    """A row of the kernels line: ``launches`` are wrapper calls on the
+    main path, ``cuda_launches`` the CUDA launches they issued."""
+    return {"name": name, **KERNELS[name], "launches": launches,
+            "cuda_launches": cuda_launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib_ms}
+
+
 def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
         iterations: int | None = MAIN_ITERATIONS) -> list[dict]:
     """All phases; returns the kernel rows of the JSON line.
@@ -1186,12 +1627,14 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
         plan = build_plan(a, **kw)
         check_kernels(plan, f"{name}/{scale}", seed=10 + i)
         check_batched_kernels(plan, f"{name}/{scale}", seed=40 + i)
+        check_shard_steps(plan, f"{name}/{scale}", seed=80 + i)
         check_sweep_kernels(build_plan(a, layout="index", **kw),
                             f"{name}/{scale} index", seed=60 + i)
         if name == "thermal2":
             plan32 = build_plan(a, dtype=torch.float32, **plan_kw)
             check_kernels(plan32, f"{name}/{scale}", seed=20)
             check_batched_kernels(plan32, f"{name}/{scale}", seed=50)
+            check_shard_steps(plan32, f"{name}/{scale}", seed=90)
             check_sweep_kernels(
                 build_plan(a, dtype=torch.float32, layout="index",
                            **plan_kw), f"{name}/{scale} index", seed=70)
@@ -1200,6 +1643,8 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     check_kernels(plan_main, f"thermal2/n={a_main.shape[0]}", seed=30)
     check_batched_kernels(plan_main, f"thermal2/n={a_main.shape[0]}",
                           seed=31)
+    check_shard_steps(plan_main, f"thermal2/n={a_main.shape[0]}", seed=37,
+                      sizes=(None, BATCH))
     check_repeats(hbmc_trisolve_fused, plan_main._precond.tables, True, None,
                   35, f"B1 thermal2/n={a_main.shape[0]}")
     check_repeats(hbmc_trisolve_fused_batched, plan_main._precond.tables,
@@ -1548,37 +1993,39 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     profile_solve(plan, b, b8)
     profile_solve(plan_idx, b, b8, tag="index ")
 
-    def row(name, launches, cuda_launches, err, ms, plain_ms, bnd, by,
-            lib_ms):
-        """``launches`` are wrapper calls on the main path, ``cuda_launches``
-        the CUDA launches they issued."""
-        return {"name": name, **KERNELS[name], "launches": launches,
-                "cuda_launches": cuda_launches, "max_abs_err": err,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
-                "bound_by": by, "library_ms": lib_ms}
-
     # CUDA launches: B1, B2 from the main solve, B3, B4 from the batched
     # solve, B5 from the index solve and B6 from the index batched solve
-    return [
-        row("hbmc_trisolve_fused", counts["hbmc_trisolve_fused"],
-            cuda_main["hbmc_trisolve_fused"], err_tri, tri_ms, tri_plain_ms,
-            tri_bnd, tri_by, None),
-        row("sell_spmv", counts["sell_spmv"], cuda_main["sell_spmv"],
-            err_spmv, spmv_ms, spmv_plain_ms, spmv_bnd, spmv_by, spmv_lib_ms),
-        row("hbmc_trisolve_fused_batched",
-            counts_b["hbmc_trisolve_fused_batched"],
-            cuda_b["hbmc_trisolve_fused_batched"], err_tri_b, tri_b_ms,
-            tri_b_plain_ms, tri_b_bnd, tri_b_by, None),
-        row("sell_spmv_batched", counts_b["sell_spmv_batched"],
-            cuda_b["sell_spmv_batched"], err_spmv_b, spmv_b_ms,
-            spmv_b_plain_ms, spmv_b_bnd, spmv_b_by, spmv_b_lib_ms),
-        row("hbmc_trisolve", counts_idx["hbmc_trisolve"],
-            cuda_idx["hbmc_trisolve"], err_sw, sw_ms, sw_plain_ms, sw_bnd,
-            sw_by, sw_lib_ms),
-        row("hbmc_trisolve_batched", counts_idx_b["hbmc_trisolve_batched"],
-            cuda_idx_b["hbmc_trisolve_batched"], err_sw_b, sw_b_ms,
-            sw_b_plain_ms, sw_b_bnd, sw_b_by, sw_b_lib_ms),
+    rows = [
+        kernel_row("hbmc_trisolve_fused", counts["hbmc_trisolve_fused"],
+                   cuda_main["hbmc_trisolve_fused"], err_tri, tri_ms,
+                   tri_plain_ms, tri_bnd, tri_by, None),
+        kernel_row("sell_spmv", counts["sell_spmv"], cuda_main["sell_spmv"],
+                   err_spmv, spmv_ms, spmv_plain_ms, spmv_bnd, spmv_by,
+                   spmv_lib_ms),
+        kernel_row("hbmc_trisolve_fused_batched",
+                   counts_b["hbmc_trisolve_fused_batched"],
+                   cuda_b["hbmc_trisolve_fused_batched"], err_tri_b,
+                   tri_b_ms, tri_b_plain_ms, tri_b_bnd, tri_b_by, None),
+        kernel_row("sell_spmv_batched", counts_b["sell_spmv_batched"],
+                   cuda_b["sell_spmv_batched"], err_spmv_b, spmv_b_ms,
+                   spmv_b_plain_ms, spmv_b_bnd, spmv_b_by, spmv_b_lib_ms),
+        kernel_row("hbmc_trisolve", counts_idx["hbmc_trisolve"],
+                   cuda_idx["hbmc_trisolve"], err_sw, sw_ms, sw_plain_ms,
+                   sw_bnd, sw_by, sw_lib_ms),
+        kernel_row("hbmc_trisolve_batched",
+                   counts_idx_b["hbmc_trisolve_batched"],
+                   cuda_idx_b["hbmc_trisolve_batched"], err_sw_b, sw_b_ms,
+                   sw_b_plain_ms, sw_b_bnd, sw_b_by, sw_b_lib_ms),
     ]
+
+    # -- 3f. mesh ---------------------------------------------------------------
+    log(f"== 3f. mesh: build_plan(mesh=..., lane_multiple="
+        f"{MESH_LANE_MULTIPLE}) at world size 1 "
+        f"({'NCCL' if on_card else 'gloo'}), same matrix; solve and "
+        f"solve_batched B={BATCH}")
+    rows += mesh_phase(a_main, plan_kw, b, b8, iterations, on_card,
+                       solve_reps)
+    return rows
 
 
 def main() -> int:

@@ -2,7 +2,8 @@
 
 The host-side setup modules (graph, matrices, coloring, hbmc, ic0, sell) are
 numpy/scipy copies of the reference's; trisolve, iccg, plan and smoothers
-run on a torch device.
+run on a torch device, or sharded over a ``DeviceMesh`` axis; ``partition``
+(imported on its own, as in the reference) holds the one-shot mesh solves.
 """
 from .coloring import (BlockPartition, BMCOrdering, MCOrdering,
                        block_multicolor_ordering, build_blocks, color_blocks,
@@ -17,9 +18,9 @@ from .ic0 import (FactorBreakdownError, IC0Structure, ic0, ic0_error,
 from .iccg import (BREAKDOWN, CONVERGED, DIVERGED, DIVERGENCE_FACTOR,
                    MAXITER, RUNNING, STAGNATED, STAGNATION_WINDOW,
                    STATUS_NAMES, UNHEALTHY_STATUSES, BatchedPCGResult,
-                   PCGResult, SlabState, pcg, pcg_batched, spmv_ell,
-                   spmv_ell_batched, spmv_sell, spmv_sell_batched,
-                   status_name)
+                   PCGResult, SlabState, make_sharded_spmv, pcg, pcg_batched,
+                   pcg_iteration, spmv_ell, spmv_ell_batched, spmv_sell,
+                   spmv_sell_batched, status_name)
 from .matrices import PAPER_PROBLEMS, PAPER_SHIFTS, paper_problem
 from .plan import (ON_BREAKDOWN, SCHEDULERS, SPMV_FORMATS, BatchedICCGReport,
                    ICCGReport, SetupBreakdown, SolverPlan, build_plan)
@@ -32,10 +33,11 @@ from .sell import (FusedRoundMajorTables, PackingIndexError, RoundMajorLayout,
 from .smoothers import GSSmoother, build_gs_smoother, gs_solve
 from .solvers import solve_iccg, solve_iccg_batched
 from .trisolve import (LAYOUTS, DeviceFusedTables, DeviceTables,
+                       DistributedRoundMajorPreconditioner,
                        HBMCPreconditioner, RoundMajorPreconditioner,
                        backward_solve, backward_solve_batched,
                        build_preconditioner, build_preconditioner_from_rounds,
                        build_round_major_preconditioner_from_rounds,
                        forward_solve, forward_solve_batched, fused_solve,
                        fused_solve_batched, sequential_backward,
-                       sequential_forward)
+                       sequential_forward, shard_fused_tables)

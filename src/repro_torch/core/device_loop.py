@@ -21,10 +21,19 @@ schedule.
 A capture issues the kernel launches of one block without running them, and
 a replay runs them without the wrappers' Python: the loop takes the
 capture's issue back out of the launch counters (``kernels.launch_counts``,
-``kernels.cuda_launch_counts``) and adds the block's launches once per
-replay, so the counters count the launches that ran on the card.
+``kernels.cuda_launch_counts``, and the mesh's all-gathers,
+``mesh.gather_counts``) and adds the block's launches once per replay, so
+the counters count the launches that ran on the card.
 ``loop_counts`` counts the flag reads, the blocks run, the replays among
 them and the captures.
+
+Under a mesh (``build_plan(mesh=...)``) the block holds the mesh's
+collectives too, and they are captured with it: the apply before the loop
+and the eager first block issue every collective once, so NCCL has made
+its communicator before the capture, as a capture requires.  Every rank
+must run the same number of blocks, or the collectives deadlock: the flag
+is computed from replicated state by the same arithmetic on every rank,
+so the ranks read the same flag after every block.
 
 A failed capture or replay raises: there is no fallback to a host loop.
 """
@@ -36,6 +45,7 @@ from typing import Callable
 import torch
 
 from .. import kernels
+from . import mesh
 
 #: PCG steps per block, and so per host read of the loop's flag.  On the
 #: H100 (chip_smoke.py phase 4, 1M unknowns) k = 8 and 16 give the same ms
@@ -46,6 +56,14 @@ _STEPS_PER_READ = 8
 _counts = {"reads": 0, "blocks": 0, "replays": 0, "captures": 0}
 
 State = tuple[torch.Tensor, ...]
+
+
+def _counter_values() -> dict[tuple, int]:
+    """Every launch and all-gather counter, keyed by (module, attribute)."""
+    values = kernels._counter_values()
+    values.update({(mesh, attr): getattr(mesh, attr)
+                   for attr in mesh._COUNTERS})
+    return values
 
 
 def loop_counts() -> dict[str, int]:
@@ -200,7 +218,7 @@ class BlockLoop:
         dev = state[0].device
         static = tuple(t.clone() for t in state)
         live = torch.zeros((), dtype=torch.bool, device=dev)
-        before = kernels._counter_values()
+        before = _counter_values()
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         with torch.cuda.graph(graph, pool=self._cache._graph_pool(),
@@ -217,7 +235,7 @@ class BlockLoop:
             live.copy_(flag(static))
         torch.cuda.synchronize(dev)
         self.capture_seconds = time.perf_counter() - t0
-        after = kernels._counter_values()
+        after = _counter_values()
         # the capture issued one block's launches and ran none of them
         self._launches = {key: after[key] - before[key] for key in after}
         kernels._add_counter_values(self._launches, -1)

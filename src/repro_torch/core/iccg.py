@@ -2,7 +2,9 @@
 
 Port of ``repro.core.iccg``: the single-RHS loop (``pcg``), the batched
 multi-RHS loop (``pcg_batched``) and the quantum-stepped slab loop of the
-serving layer (``SlabState``, ``_pcg_slab_device``).  The reference runs
+serving layer (``SlabState``, ``_pcg_slab_device``), the mesh SpMV
+(``make_sharded_spmv``) and the pure PCG step (``pcg_iteration``).  The
+reference runs
 each loop as a device-side ``lax.while_loop``; here each runs blocks of
 ``k`` masked steps through ``device_loop.BlockLoop`` (a CUDA graph replayed
 on the card) and reads one device flag, the loop condition, per block.  A
@@ -35,9 +37,10 @@ import numpy as np
 import torch
 
 from ..kernels.ref import _sum_over_k
-from ..kernels.sell_spmv import sell_spmv, sell_spmv_batched
+from ..kernels.sell_spmv import sell_spmv, sell_spmv_batched, sell_spmv_block
 from . import device_loop
 from .device_loop import BlockLoop, LoopCache
+from .mesh import all_gather_, axis_group
 
 # ---------------------------------------------------------------------------
 # Solve-status taxonomy (identical codes and names to the reference).
@@ -99,6 +102,72 @@ def spmv_sell_batched(vals: torch.Tensor, cols: torch.Tensor,
                       x: torch.Tensor, n: int) -> torch.Tensor:
     """SELL-w SpMV over B column vectors.  x: (n_pad, B) -> (n, B)."""
     return sell_spmv_batched(vals, cols, x)[:n]
+
+
+# ---------------------------------------------------------------------------
+# Mesh-sharded SpMV: operand rows (ELL) / slices (SELL) live sharded over one
+# mesh axis, the vector is replicated, and the row results are all-gathered:
+# one collective per SpMV, the distributed analogue of the paper's
+# embarrassingly-parallel matrix-vector kernel.
+# ---------------------------------------------------------------------------
+
+def make_sharded_spmv(spmv_format: str, n: int, mesh, axis: str,
+                      vals: torch.Tensor, cols: torch.Tensor,
+                      batched: bool) -> Callable[[torch.Tensor],
+                                                 torch.Tensor]:
+    """Distributed SpMV closure over this rank's block of packed operands.
+
+    ``vals``/``cols`` are this rank's block of the operand along its leading
+    (row / slice) dimension, every rank's block the same size; the input
+    vector ((n_pad,), or (n_pad, B) when ``batched``) is replicated and so
+    is the output: each rank computes its row block (``sell_spmv_block``,
+    or ``spmv_ell``'s PyTorch ops) and one all-gather assembles the whole
+    result, cut to ``n`` rows for SELL after the gather.  Per-row
+    arithmetic is the single-device ``spmv_ell``/``spmv_sell``'s, so a
+    distributed PCG reproduces their float sequences bitwise.  Every rank
+    must call the closure (the collective).
+    """
+    if spmv_format not in ("sell", "ell"):
+        raise ValueError(f"unknown spmv format {spmv_format!r}")
+    group, size, _ = axis_group(mesh, axis)
+    dim = 2 if batched else 1
+
+    def apply(x: torch.Tensor) -> torch.Tensor:
+        if x.dim() != dim:
+            raise ValueError(f"x must be {dim}-D, got {tuple(x.shape)}")
+        if spmv_format == "ell":
+            y_loc = spmv_ell(vals, cols, x)
+        else:
+            y_loc = sell_spmv_block(vals, cols, x)   # (s_loc*w[, B])
+        y = y_loc.new_empty((size * y_loc.shape[0],) + tuple(y_loc.shape[1:]))
+        all_gather_(y, y_loc, group, "spmv")
+        return y[:n] if spmv_format == "sell" else y
+
+    return apply
+
+
+def pcg_iteration(spmv: Callable[[torch.Tensor], torch.Tensor],
+                  precond: Callable[[torch.Tensor], torch.Tensor]):
+    """One PCG step with the PRECONDITIONED pairings, as a pure function.
+
+    The carried state is ``(x, r, p, rz)`` with ``rz = (r, z)`` from the
+    previous step -- the body of ``_pcg_device`` without its guards:
+
+        alpha = (r, z) / (p, A p)        beta = (r2, z2) / (r, z)
+
+    (not the unpreconditioned ``(r, r)`` pairings of plain CG).
+    """
+    def step(x, r, p, rz):
+        ap = spmv(p)
+        alpha = rz / torch.dot(p, ap)
+        x = x + alpha * p
+        r = r - alpha * ap
+        z = precond(r)
+        rz_new = torch.dot(r, z)
+        beta = rz_new / rz
+        p = z + beta * p
+        return x, r, p, rz_new
+    return step
 
 
 @dataclasses.dataclass

@@ -1,7 +1,9 @@
 """Reusable solver plan: factor once, solve many (the setup pipeline).
 
-Port of ``repro.core.plan`` on one device: single-RHS, batched multi-RHS
-and the slab primitives of the serving layer, in both layouts.
+Port of ``repro.core.plan``: single-RHS, batched multi-RHS and the slab
+primitives of the serving layer, in both layouts, on one device or, for
+the round-major layout, sharded over one axis of a ``torch.distributed``
+``DeviceMesh``.
 ``SolverPlan`` owns
 
     ordering            MC / BMC / HBMC permutation + padded system
@@ -32,8 +34,14 @@ pattern, and writes the new values into the device tensors the captured
 graphs read, so no graph is captured again.
 
 The plan runs on the device it is given (default ``"cuda"``, which raises
-without a CUDA device).  The mesh and static validation belong to later
-slices of the port.
+without a CUDA device), or on the mesh's device type.  Under a mesh every
+rank runs the same program (SPMD): it builds the plan from the same matrix,
+keeps its lane block of the fused tables and its slice block of the SpMV
+operand on its device, and solves the same right-hand side with replicated
+state vectors; the preconditioner issues one all-gather per fused step and
+the SpMV one per product (``DistributedRoundMajorPreconditioner``,
+``make_sharded_spmv``).  Static validation belongs to a later slice of the
+port.
 """
 from __future__ import annotations
 
@@ -44,6 +52,7 @@ from typing import Callable
 import numpy as np
 import scipy.sparse as sp
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from ..kernels.config import DEFAULT_DEVICE, resolve_device
 from . import sell
@@ -55,11 +64,16 @@ from .hbmc import _validate_w, hbmc_from_bmc, pad_system_hbmc
 from .ic0 import FactorBreakdownError, ic0_refactor, ic0_structure
 from .iccg import (DIVERGENCE_FACTOR, STAGNATION_WINDOW, BatchedPCGResult,
                    PCGResult, SlabState, _pcg_batched_device, _pcg_device,
-                   _pcg_slab_device, spmv_ell, spmv_ell_batched, spmv_sell,
-                   spmv_sell_batched, status_name)
-from .trisolve import (LAYOUTS, DeviceFusedTables, RoundMajorPreconditioner,
+                   _pcg_slab_device, make_sharded_spmv, spmv_ell,
+                   spmv_ell_batched, spmv_sell, spmv_sell_batched,
+                   status_name)
+from .mesh import axis_group, axis_names
+from .trisolve import (LAYOUTS, DeviceFusedTables,
+                       DistributedRoundMajorPreconditioner,
+                       RoundMajorPreconditioner,
                        build_preconditioner_from_rounds,
-                       build_round_major_preconditioner_from_rounds)
+                       build_round_major_preconditioner_from_rounds,
+                       shard_fused_tables)
 
 _NP_DTYPES = {torch.float64: np.float64, torch.float32: np.float32}
 SPMV_FORMATS = ("sell", "ell")
@@ -233,10 +247,9 @@ def _occupancy_from_rounds(rounds, drop) -> float:
     return float(np.mean(live / rmax)) if len(live) else 1.0
 
 
-def _check_knobs(layout: str, spmv_format: str, validate: str,
-                 mesh) -> None:
-    """Unknown layouts and formats raise, as in the reference; so do the
-    reference's options that later slices of the port add."""
+def _check_knobs(layout: str, spmv_format: str, validate: str) -> None:
+    """Unknown layouts and formats raise, as in the reference; so does the
+    reference's option that a later slice of the port adds."""
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; expected one of "
                          f"{LAYOUTS}")
@@ -246,8 +259,53 @@ def _check_knobs(layout: str, spmv_format: str, validate: str,
     if validate != "off":
         raise ValueError(f"validate={validate!r} is not ported; the port "
                          "runs validate='off'")
-    if mesh is not None:
-        raise ValueError("mesh= is not ported; the port runs on one device")
+
+
+def _check_mesh(mesh, mesh_axis: str, layout: str, lane_multiple: int,
+                device) -> tuple[torch.device, int]:
+    """The plan's device and lane multiple, with the reference's mesh
+    checks: a mesh needs the round-major layout and an axis it has, and its
+    axis size is folded into ``lane_multiple``.  The device is the mesh's
+    device type; an explicit ``device`` of another type raises."""
+    lane_multiple = max(int(lane_multiple), 1)
+    if mesh is None:
+        return resolve_device(DEFAULT_DEVICE if device is None else device), \
+            lane_multiple
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh= takes a torch.distributed DeviceMesh, got "
+                        f"{type(mesh).__name__}")
+    if layout != "round_major":
+        raise ValueError("mesh= requires layout='round_major' (the sharded "
+                         "apply is the fused round-major sweep)")
+    if mesh_axis not in axis_names(mesh):
+        raise ValueError(f"mesh has no axis {mesh_axis!r}; axes are "
+                         f"{axis_names(mesh)}")
+    if device is not None and torch.device(device).type != mesh.device_type:
+        raise ValueError(f"device={str(device)!r} disagrees with the mesh's "
+                         f"device type {mesh.device_type!r}")
+    # the lane axis must shard evenly: fold the axis size into the lane
+    # padding (a single-device plan with the same lane_multiple is bitwise
+    # identical, the parity oracle of the tests)
+    size = axis_group(mesh, mesh_axis)[1]
+    return resolve_device(mesh.device_type), \
+        int(np.lcm(lane_multiple, size))
+
+
+def _shard_rows(vals: np.ndarray, cols: np.ndarray, size: int, rank: int,
+                pad: bool) -> tuple[np.ndarray, np.ndarray]:
+    """This rank's block of a packed SpMV operand's leading axis.  ``pad``
+    (SELL) first pads the axis with all-zero slices to a multiple of
+    ``size``: they give rows past n, which the SpMV cuts."""
+    extra = (-vals.shape[0]) % size
+    if extra and pad:
+        widths = ((0, extra),) + ((0, 0),) * (vals.ndim - 1)
+        vals, cols = np.pad(vals, widths), np.pad(cols, widths)
+    elif extra:
+        raise ValueError(f"{vals.shape[0]} operand rows do not split over "
+                         f"{size} ranks")
+    block = vals.shape[0] // size
+    rows = slice(rank * block, (rank + 1) * block)
+    return vals[rows], cols[rows]
 
 
 class SolverPlan:
@@ -265,12 +323,14 @@ class SolverPlan:
                  block_size: int = 32, w: int = 8, shift: float = 0.0,
                  spmv_format: str = "sell",
                  dtype: torch.dtype = torch.float64,
-                 layout: str = "round_major", mesh=None,
+                 layout: str = "round_major", mesh: DeviceMesh | None = None,
+                 mesh_axis: str = "data", lane_multiple: int = 1,
                  on_breakdown: str = "clamp",
                  validate: str = "off", scheduler: str = "coloring",
-                 device: str | torch.device = DEFAULT_DEVICE):
-        device = resolve_device(device)
-        _check_knobs(layout, spmv_format, validate, mesh)
+                 device: str | torch.device | None = None):
+        _check_knobs(layout, spmv_format, validate)
+        device, lane_multiple = _check_mesh(mesh, mesh_axis, layout,
+                                            lane_multiple, device)
         if scheduler not in SCHEDULERS:
             raise ValueError(f"unknown scheduler {scheduler!r}; expected "
                              f"one of {SCHEDULERS}")
@@ -281,6 +341,9 @@ class SolverPlan:
             raise ValueError(f"unknown on_breakdown {on_breakdown!r}; "
                              f"expected one of {ON_BREAKDOWN}")
         self._init_common(device, dtype)
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        self.lane_multiple = lane_multiple
         self.layout = layout
         self.spmv_format = spmv_format
         self.method = method
@@ -326,6 +389,7 @@ class SolverPlan:
                             f"got {dtype}")
         self.device = device
         self.dtype = dtype
+        self.mesh, self.mesh_axis, self.lane_multiple = None, "data", 1
         self._np_dtype = np.dtype(_NP_DTYPES[dtype])
         self.setup_count = 0
         self.refactor_count = 0
@@ -421,14 +485,17 @@ class SolverPlan:
         """Pack the factor + the SpMV operand in the plan's layout and
         format, and move them to the device.  The index layout has no
         round-major state map (``_rm`` is None): its vectors are in HBMC
-        order, of length ``n_padded``."""
+        order, of length ``n_padded``.  Under a mesh the plan keeps this
+        rank's lane block of the fused tables and its block of the SpMV
+        operand's rows (ELL) or slices (SELL, padded with zero slices to a
+        multiple of the axis size)."""
         sysd = self._sysd
         if self.layout == "round_major":
             self._precond, self._rm = \
                 build_round_major_preconditioner_from_rounds(
                     l_bar, sysd.fwd_rounds, sysd.bwd_rounds,
                     drop_mask=sysd.drop, dtype=self.dtype,
-                    device=self.device)
+                    device=self.device, lane_multiple=self.lane_multiple)
             a_op = sell.permute_round_major(sysd.a_bar, self._rm)
         else:
             self._precond = build_preconditioner_from_rounds(
@@ -438,10 +505,19 @@ class SolverPlan:
             a_op = sysd.a_bar
         if self.spmv_format == "sell":
             sm = sell.pack_sell(a_op, self.w)
-            self._set_spmv_operand(sm.vals, sm.cols, sm.n)
+            vals, cols, n = sm.vals, sm.cols, sm.n
         else:
             cols, vals = sell.pack_ell(a_op)
-            self._set_spmv_operand(vals, cols, a_op.shape[0])
+            n = a_op.shape[0]
+        if self.mesh is not None:
+            self._precond = DistributedRoundMajorPreconditioner(
+                tables=shard_fused_tables(self._precond.tables, self.mesh,
+                                          self.mesh_axis),
+                mesh=self.mesh, axis=self.mesh_axis)
+            _, size, rank = axis_group(self.mesh, self.mesh_axis)
+            vals, cols = _shard_rows(vals, cols, size, rank,
+                                     pad=self.spmv_format == "sell")
+        self._set_spmv_operand(vals, cols, n)
 
     def _factor(self, a_bar: sp.csr_matrix) -> sp.csr_matrix:
         """Numeric IC(0) sweep under the plan's ``on_breakdown`` policy.
@@ -560,11 +636,20 @@ class SolverPlan:
     # -- solving ------------------------------------------------------------
 
     def _spmv(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mesh is not None:
+            return self._sharded_spmv(x, batched=False)
         if self.spmv_format == "ell":
             return spmv_ell(self._spmv_vals, self._spmv_cols, x)
         return spmv_sell(self._spmv_vals, self._spmv_cols, x, self._spmv_n)
 
+    def _sharded_spmv(self, x: torch.Tensor, batched: bool) -> torch.Tensor:
+        return make_sharded_spmv(self.spmv_format, self._spmv_n, self.mesh,
+                                 self.mesh_axis, self._spmv_vals,
+                                 self._spmv_cols, batched)(x)
+
     def _spmv_batched(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mesh is not None:
+            return self._sharded_spmv(x, batched=True)
         if self.spmv_format == "ell":
             return spmv_ell_batched(self._spmv_vals, self._spmv_cols, x)
         return spmv_sell_batched(self._spmv_vals, self._spmv_cols, x,
@@ -780,16 +865,29 @@ class SolverPlan:
 def build_plan(a: sp.spmatrix, method: str = "hbmc", block_size: int = 32,
                w: int = 8, shift: float = 0.0, spmv_format: str = "sell",
                dtype: torch.dtype = torch.float64,
-               layout: str = "round_major", mesh=None,
+               layout: str = "round_major", mesh: DeviceMesh | None = None,
+               mesh_axis: str = "data", lane_multiple: int = 1,
                on_breakdown: str = "clamp",
                validate: str = "off", scheduler: str = "coloring",
-               device: str | torch.device = DEFAULT_DEVICE) -> SolverPlan:
+               device: str | torch.device | None = None) -> SolverPlan:
     """One-time setup: ordering -> round-parallel IC(0) -> packed operators.
 
     Returns a ``SolverPlan`` whose ``solve`` / ``refactor`` amortize this
     cost over many solves.  ``device`` is where the PCG loop runs:
     ``"cuda"`` (the default; raises without a CUDA device) launches the
     hand-written kernels, ``"cpu"`` runs their plain PyTorch versions.
+
+    With ``mesh=`` (a ``torch.distributed.device_mesh.DeviceMesh`` with
+    named dimensions, made by the caller with ``init_device_mesh``) the
+    plan is distributed over the dimension ``mesh_axis``: every rank calls
+    ``build_plan`` with the same matrix and ``solve`` with the same
+    right-hand side, and keeps only its block of the fused tables' lanes
+    and of the SpMV operand; the apply runs the fused sweep with one
+    all-gather per step.  The plan runs on the mesh's device type (a
+    ``device`` of another type raises) and needs ``layout="round_major"``.
+    ``lane_multiple`` pads the lane axis (folded with the axis size by
+    lcm); a single-device plan built with the same ``lane_multiple`` is the
+    bitwise parity oracle for a distributed plan.
 
     ``scheduler`` picks how the ordered pattern is cut into parallel rounds:
     ``"coloring"`` uses the method's color rounds, ``"levelset"`` the
@@ -806,5 +904,6 @@ def build_plan(a: sp.spmatrix, method: str = "hbmc", block_size: int = 32,
     """
     return SolverPlan(a, method=method, block_size=block_size, w=w,
                       shift=shift, spmv_format=spmv_format, dtype=dtype,
-                      layout=layout, mesh=mesh, on_breakdown=on_breakdown, validate=validate,
-                      scheduler=scheduler, device=device)
+                      layout=layout, mesh=mesh, mesh_axis=mesh_axis,
+                      lane_multiple=lane_multiple, on_breakdown=on_breakdown,
+                      validate=validate, scheduler=scheduler, device=device)

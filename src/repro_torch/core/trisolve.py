@@ -25,7 +25,13 @@ substitution (its ``backend="xla"``), written as PyTorch ops on whatever
 device holds the tables: a scatter by ``rows`` per round, with an optional
 starting iterate ``x0``.  They carry the GS/SOR smoothers
 (``core.smoothers``) and the tests; the plan's preconditioner never runs
-them.  The mesh-sharded apply belongs to a later slice of the port.
+them.
+
+Under a ``DeviceMesh`` (``build_plan(mesh=...)``) the fused tables' lane
+axis is sharded over one mesh axis: ``shard_fused_tables`` keeps this
+rank's lane block, and ``DistributedRoundMajorPreconditioner`` runs the
+fused sweep with one all-gather per step (``_dist_substitute_fused``, the
+reference's "one collective per round"); the state vectors are replicated.
 """
 from __future__ import annotations
 
@@ -40,10 +46,13 @@ from scipy.sparse.linalg import spsolve_triangular
 
 from ..kernels.config import DEFAULT_DEVICE, resolve_device
 from ..kernels.hbmc_trisolve import (hbmc_trisolve_fused,
-                                     hbmc_trisolve_fused_batched)
+                                     hbmc_trisolve_fused_batched,
+                                     hbmc_trisolve_shard_step,
+                                     hbmc_trisolve_shard_step_batched)
 from ..kernels.ref import _sum_over_k
 from ..kernels.segments import barrier_segments
 from .hbmc import HBMCOrdering
+from .mesh import all_gather_, axis_group
 from .sell import (FusedRoundMajorTables, RoundMajorLayout, StepTables,
                    fuse_round_major, pack_factor, pack_factor_hbmc)
 
@@ -213,15 +222,127 @@ class RoundMajorPreconditioner:
             r.reshape(self.tables.n_steps, self.tables.lanes, r.shape[-1]))
 
 
+# ---------------------------------------------------------------------------
+# Mesh-sharded fused substitution: the lane axis R is sharded over one mesh
+# axis, the solution vector is replicated, and each fused step ends in ONE
+# all-gather of the step's lane updates -- the distributed analogue of the
+# paper's "one synchronization per color" (§4.4.3), one level up: level-1
+# blocks -> devices, w lanes -> the threads of a device.
+# ---------------------------------------------------------------------------
+
+def _dist_substitute_fused(mesh, axis: str, m: int, cols: torch.Tensor,
+                           vals: torch.Tensor, dinv: torch.Tensor,
+                           q: torch.Tensor, batched: bool) -> torch.Tensor:
+    """Fused fwd+bwd sweep with the lane axis sharded over ``axis``.
+
+    ``cols``/``vals`` (2S, r_loc, K) and ``dinv`` (2S, r_loc) are this
+    rank's lane block of tables of ``r_full = r_loc * size`` lanes; ``q``
+    is the whole right-hand side, (S, r_full) (or (S, r_full, B)), the
+    same on every rank.  Per fused step every rank computes its own lane
+    block's updates from its replica of y (the shard step kernel) and one
+    all-gather, in place, assembles the step's slice before the next step:
+    the per-lane arithmetic is ``fused_solve``'s, so the result is bitwise
+    the single-device sweep over the same tables.  Returns y (m[, B]), the
+    same on every rank.  Every rank must call it (the collectives).
+    """
+    group, size, rank = axis_group(mesh, axis)
+    s2, r_loc, _ = cols.shape
+    s_, r_full = s2 // 2, r_loc * size
+    if q.shape[:2] != (s_, r_full) or m != s_ * r_full \
+            or q.dim() != (3 if batched else 2):
+        raise ValueError(f"q {tuple(q.shape)} does not fit {size} lane "
+                         f"blocks of tables {tuple(cols.shape)} (m = {m})")
+    step = hbmc_trisolve_shard_step_batched if batched else \
+        hbmc_trisolve_shard_step
+    lane0 = rank * r_loc
+    # every slice is written (by a forward step) before any step reads it
+    # unmasked, so y needs no zeros
+    y = torch.empty((m,) + tuple(q.shape[2:]), dtype=q.dtype,
+                    device=q.device)
+    for g in range(s2):
+        step(cols, vals, dinv, q, y, g, lane0)
+        dest = (g if g < s_ else s2 - 1 - g) * r_full
+        slab = y[dest:dest + r_full]
+        all_gather_(slab, slab[lane0:lane0 + r_loc], group, "trisolve")
+    return y
+
+
+@dataclasses.dataclass(frozen=True)
+class DistributedRoundMajorPreconditioner:
+    """``RoundMajorPreconditioner`` sharded over a device mesh axis.
+
+    ``tables`` hold this rank's lane block of the fused round-major tables
+    (``shard_fused_tables``): the heavy data is fully distributed, the (m,)
+    state vectors stay replicated.  The apply is the fused 2S-step sweep
+    with one all-gather per step (``_dist_substitute_fused``).
+    """
+    tables: DeviceFusedTables
+    mesh: Any
+    axis: str = "data"
+
+    @property
+    def n_rounds(self) -> int:
+        return self.tables.n_steps
+
+    @property
+    def lanes(self) -> int:
+        """Lanes of the whole (unsharded) tables."""
+        return self.tables.lanes * axis_group(self.mesh, self.axis)[1]
+
+    @property
+    def m(self) -> int:
+        return self.tables.n_steps * self.lanes
+
+    def _apply(self, r: torch.Tensor, batched: bool) -> torch.Tensor:
+        t = self.tables
+        shape = (t.n_steps, self.lanes) + tuple(r.shape[1:])
+        return _dist_substitute_fused(self.mesh, self.axis, self.m, t.cols,
+                                      t.vals, t.dinv, r.reshape(shape),
+                                      batched)
+
+    def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        return self._apply(r, batched=False)
+
+    def apply_batched(self, r: torch.Tensor) -> torch.Tensor:
+        """The apply on B columns at once: r (m, B) -> z (m, B)."""
+        return self._apply(r, batched=True)
+
+
+def shard_fused_tables(tables: DeviceFusedTables, mesh,
+                       axis: str = "data") -> DeviceFusedTables:
+    """This rank's lane block of fused tables sharded over ``axis``.
+
+    The lane axis must already be a multiple of the axis size -- build the
+    plan/tables with ``lane_multiple = size`` (``pack_factor(...,
+    lane_multiple=...)``) rather than re-padding here, so every round-major
+    position stays valid.  Returns new contiguous tensors on the tables'
+    device.
+    """
+    _, size, rank = axis_group(mesh, axis)
+    if tables.lanes % size != 0:
+        raise ValueError(
+            f"lane axis ({tables.lanes}) is not a multiple of mesh axis "
+            f"{axis!r} ({size}); pack with lane_multiple={size}")
+    r_loc = tables.lanes // size
+    lanes = slice(rank * r_loc, (rank + 1) * r_loc)
+    return DeviceFusedTables(cols=tables.cols[:, lanes].contiguous(),
+                             vals=tables.vals[:, lanes].contiguous(),
+                             dinv=tables.dinv[:, lanes].contiguous())
+
+
 def build_round_major_preconditioner_from_rounds(
         l_final: sp.csr_matrix, fwd_rounds, bwd_rounds, drop_mask=None,
         dtype: torch.dtype = torch.float64,
-        device: str | torch.device = DEFAULT_DEVICE
+        device: str | torch.device = DEFAULT_DEVICE, lane_multiple: int = 1
         ) -> tuple[RoundMajorPreconditioner, RoundMajorLayout]:
     """Pack a factor into the fused round-major form; returns the
-    preconditioner plus the layout (the b-in / x-out permutation pair)."""
+    preconditioner plus the layout (the b-in / x-out permutation pair).
+
+    ``lane_multiple`` pads the lane axis so it shards evenly over a mesh
+    axis of that size (see ``DistributedRoundMajorPreconditioner``)."""
     device = resolve_device(device)
-    fwd_h, bwd_h = pack_factor(l_final, fwd_rounds, bwd_rounds, drop_mask)
+    fwd_h, bwd_h = pack_factor(l_final, fwd_rounds, bwd_rounds, drop_mask,
+                               lane_multiple)
     fused_h = fuse_round_major(fwd_h, bwd_h)
     pre = RoundMajorPreconditioner(
         tables=DeviceFusedTables.from_host(fused_h, dtype=dtype,

@@ -7,7 +7,14 @@ single sweep of the index layout, single-RHS and batched (replaces the
 Pallas ``hbmc_trisolve`` and ``hbmc_trisolve_batched``).
 
 sell_spmv -- the SELL-w SpMV, single-RHS and batched (``csrc/sell_spmv.cu``;
-replaces the Pallas ``sell_spmv`` and ``sell_spmv_batched``).
+replaces the Pallas ``sell_spmv`` and ``sell_spmv_batched``), and
+``sell_spmv_block``, a rank's slice shard of a mesh through the same two
+kernels.
+
+The shard step -- one fused step of one rank's lane block of a fused table
+sharded over a mesh (``hbmc_trisolve_shard_step``, ``_batched``; in
+``csrc/hbmc_trisolve.cu``): the kernel of the mesh apply
+``core.trisolve.DistributedRoundMajorPreconditioner``.
 
 Each wrapper runs its CUDA kernel for a CUDA tensor and its plain version
 (``ref.py``) for a CPU tensor, and counts its calls that launched
@@ -22,11 +29,14 @@ from . import hbmc_trisolve as _hbmc_trisolve_mod
 from . import sell_spmv as _sell_spmv_mod
 from .config import DEFAULT_DEVICE, resolve_device
 from .hbmc_trisolve import (hbmc_trisolve, hbmc_trisolve_batched,
-                            hbmc_trisolve_fused, hbmc_trisolve_fused_batched)
+                            hbmc_trisolve_fused, hbmc_trisolve_fused_batched,
+                            hbmc_trisolve_shard_step,
+                            hbmc_trisolve_shard_step_batched)
 from .ref import (hbmc_trisolve_batched_ref, hbmc_trisolve_fused_batched_ref,
                   hbmc_trisolve_fused_ref, hbmc_trisolve_ref,
-                  sell_spmv_batched_ref, sell_spmv_ref, take_fill0)
-from .sell_spmv import sell_spmv, sell_spmv_batched
+                  hbmc_trisolve_shard_step_ref, sell_spmv_batched_ref,
+                  sell_spmv_ref, take_fill0)
+from .sell_spmv import sell_spmv, sell_spmv_batched, sell_spmv_block
 
 # wrapper name -> (module, counter attribute)
 _COUNTED = {
@@ -36,6 +46,10 @@ _COUNTED = {
     "sell_spmv_batched": (_sell_spmv_mod, "batched_launches"),
     "hbmc_trisolve": (_hbmc_trisolve_mod, "sweep_launches"),
     "hbmc_trisolve_batched": (_hbmc_trisolve_mod, "sweep_batched_launches"),
+    "hbmc_trisolve_shard_step": (_hbmc_trisolve_mod, "shard_launches"),
+    "hbmc_trisolve_shard_step_batched": (_hbmc_trisolve_mod,
+                                         "shard_batched_launches"),
+    "sell_spmv_block": (_sell_spmv_mod, "block_launches"),
 }
 
 # wrapper name -> (module, counter of the CUDA launches its calls issued)
@@ -48,6 +62,10 @@ _CUDA_COUNTED = {
     "hbmc_trisolve": (_hbmc_trisolve_mod, "sweep_cuda_launches"),
     "hbmc_trisolve_batched": (_hbmc_trisolve_mod,
                               "sweep_batched_cuda_launches"),
+    "hbmc_trisolve_shard_step": (_hbmc_trisolve_mod, "shard_cuda_launches"),
+    "hbmc_trisolve_shard_step_batched": (_hbmc_trisolve_mod,
+                                         "shard_batched_cuda_launches"),
+    "sell_spmv_block": (_sell_spmv_mod, "block_cuda_launches"),
 }
 
 
@@ -60,7 +78,9 @@ def launch_counts() -> dict[str, int]:
 def cuda_launch_counts() -> dict[str, int]:
     """CUDA launches per wrapper since the last reset, as the C entry points
     report them: one per segment of the trisolve kernels (B1, B3, B5,
-    B6), one per call of B2 / B4."""
+    B6), one per call of B2 / B4 and of the shard steps.
+    ``sell_spmv_block``'s launches are B2's or B4's, counted under both
+    names."""
     return {name: getattr(mod, attr) for name, (mod, attr) in
             _CUDA_COUNTED.items()}
 

@@ -43,6 +43,12 @@ _SPMV = (_P, _P, _P, _P, _I64, _I, _I, _I64, _P, _N)
 # blocks, threads a block (sell_spmv.batched_launch), stream, launches
 _BATCHED_SPMV = (_P, _P, _P, _P, _I64, _I, _I, _I64, _I, _I, _I, _I64, _I, _P,
                  _N)
+# cols, vals, dinv, q, y, step g, S, R of the shard, K, R of the state,
+# first lane of the shard, stream, launches
+_SHARD_STEP = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _N)
+# the same with B after K
+_BATCHED_SHARD_STEP = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                       _N)
 # C signature of every kernel entry point: (argtypes), each returns
 # cudaError_t
 SIGNATURES = {
@@ -58,6 +64,10 @@ SIGNATURES = {
     "hbmc_trisolve_f32": _TRISOLVE,
     "hbmc_trisolve_batched_f64": _BATCHED_TRISOLVE,
     "hbmc_trisolve_batched_f32": _BATCHED_TRISOLVE,
+    "hbmc_trisolve_shard_step_f64": _SHARD_STEP,
+    "hbmc_trisolve_shard_step_f32": _SHARD_STEP,
+    "hbmc_trisolve_shard_step_batched_f64": _BATCHED_SHARD_STEP,
+    "hbmc_trisolve_shard_step_batched_f32": _BATCHED_SHARD_STEP,
 }
 # queries: (argtypes), each returns an int
 QUERIES = {

@@ -83,6 +83,21 @@
 //   register cache of the thread's last row all gave the same time to 0.5%
 //   (PERF.md): at B=8 the kernel is held by DRAM traffic, not by its
 //   instruction stream, so its body is the plain per-step loop.
+//
+// The shard step (shard_step; hbmc_trisolve_shard_step*): one fused step of
+//   one rank's lane block of a fused table sharded over a mesh axis, one RHS
+//   or B.  It is the per-device body of the reference's
+//   repro/core/trisolve.py _dist_substitute_fused (jnp inside shard_map, no
+//   Pallas kernel there): the rank computes its lanes' updates from its
+//   replica of y, and the caller all-gathers the step's slice across the
+//   ranks (core/trisolve.py), one collective per step.  It runs run_step's
+//   arithmetic (run_step_lanes, with the table's lane stride apart from the
+//   state's), so a mesh solve is bitwise the single-device plan with the
+//   same lane padding, and with r_loc == r_full, lane0 == 0 a step of it is
+//   bitwise a step of B1 / B3.  One launch per step: the all-gather between
+//   two steps is the barrier.  Bound: bytes, as B1 / B3 over the 2S steps
+//   of an apply; at one step a launch and a collective, not its bytes, set
+//   its time (PERF.md).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -121,8 +136,32 @@ __device__ __forceinline__ T gather_dot(const int32_t* __restrict__ c,
 }
 
 // Step g of a fused (FUSED) or single-sweep table for one (lane, column) of
-// nb columns: a forward step reads the slices before g (those at or after g
-// are still zero), a backward step all of them.
+// nb columns, for a block of lanes of the state: the table (and dinv) has
+// r_tab lanes a step, the state y and the right-hand side q have r_y, and
+// the table's lane `lane` is the state's lane lane0 + lane.  A forward step
+// reads the slices before g (those at or after g are still zero), a
+// backward step all of them.  With r_tab == r_y and lane0 == 0 it is the
+// whole table's step (run_step); the shard step runs it on one rank's lane
+// block of a table sharded over a mesh.
+template <typename T, bool FUSED>
+__device__ __forceinline__ void run_step_lanes(
+    const int32_t* __restrict__ cols, const T* __restrict__ vals,
+    const T* __restrict__ dinv, const T* __restrict__ q, T* y, int g, int s,
+    int r_tab, int r_y, int lane0, int k, int nb, int lane, int b) {
+  const int64_t m = (int64_t)s * r_y;
+  const int64_t row = (int64_t)g * r_tab + lane;
+  const int64_t at = (int64_t)g * r_y + lane0 + lane;
+  const bool fwd = !FUSED || g < s;
+  const T acc = gather_dot(cols + row * k, vals + row * k, y, 0, k, m,
+                           fwd ? (int64_t)g * r_y : m, nb, b, T(0));
+  const int64_t dest =
+      ((int64_t)(fwd ? g : 2 * s - 1 - g) * r_y + lane0 + lane) * nb + b;
+  const T q_cur = fwd ? q[at * nb + b] : y[dest];
+  y[dest] = (q_cur - acc) * dinv[row];
+}
+
+// Step g of a whole fused (FUSED) or single-sweep table for one (lane,
+// column) of nb columns.
 template <typename T, bool FUSED>
 __device__ __forceinline__ void run_step(const int32_t* __restrict__ cols,
                                          const T* __restrict__ vals,
@@ -130,15 +169,8 @@ __device__ __forceinline__ void run_step(const int32_t* __restrict__ cols,
                                          const T* __restrict__ q, T* y,
                                          int g, int s, int r, int k, int nb,
                                          int lane, int b) {
-  const int64_t m = (int64_t)s * r;
-  const int64_t row = (int64_t)g * r + lane;
-  const bool fwd = !FUSED || g < s;
-  const T acc = gather_dot(cols + row * k, vals + row * k, y, 0, k, m,
-                           fwd ? (int64_t)g * r : m, nb, b, T(0));
-  const int64_t dest =
-      ((int64_t)(fwd ? g : 2 * s - 1 - g) * r + lane) * nb + b;
-  const T q_cur = fwd ? q[row * nb + b] : y[dest];
-  y[dest] = (q_cur - acc) * dinv[row];
+  run_step_lanes<T, FUSED>(cols, vals, dinv, q, y, g, s, r, r, 0, k, nb,
+                           lane, b);
 }
 
 // Steps [g0, g1) of a fused (FUSED) or single-sweep table for nb columns:
@@ -263,6 +295,46 @@ __global__ void sweep_segment_batched(const int32_t* __restrict__ cols,
                                       const T* __restrict__ q, T* y, int g0,
                                       int g1, int s, int r, int k, int nb) {
   run_segment<T, false>(cols, vals, dinv, q, y, g0, g1, s, r, k, nb);
+}
+
+// The shard step: fused step g of one rank's lane block [lane0, lane0 +
+// r_loc) of a fused table sharded over a mesh axis, for nb columns (nb = 1:
+// one RHS).  The table shard is (2S, r_loc, K); q (S, r_full[, B]) and y
+// (S*r_full[, B]) are the replicated vectors, and the step writes the
+// block's r_loc entries of slice dest(g) of y; the caller all-gathers the
+// slice across the ranks before the next step.  One thread per (lane,
+// column), 256 a block.
+template <typename T>
+__global__ void shard_step(const int32_t* __restrict__ cols,
+                           const T* __restrict__ vals,
+                           const T* __restrict__ dinv,
+                           const T* __restrict__ q, T* y, int g, int s,
+                           int r_loc, int k, int nb, int r_full, int lane0) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (int64_t)r_loc * nb) return;
+  const int lane = (int)(t / nb);
+  const int b = (int)(t - (int64_t)lane * nb);
+  run_step_lanes<T, true>(cols, vals, dinv, q, y, g, s, r_loc, r_full, lane0,
+                          k, nb, lane, b);
+}
+
+template <typename T>
+int launch_shard_step(const int32_t* cols, const T* vals, const T* dinv,
+                      const T* q, T* y, int g, int s, int r_loc, int k,
+                      int nb, int r_full, int lane0, cudaStream_t st,
+                      int* launched) {
+  if (g < 0 || g >= 2 * s || lane0 < 0 || r_loc < 1 ||
+      (int64_t)lane0 + r_loc > r_full || nb < 1)
+    return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  const unsigned blocks =
+      (unsigned)(((int64_t)r_loc * nb + threads - 1) / threads);
+  shard_step<T><<<blocks, threads, 0, st>>>(cols, vals, dinv, q, y, g, s,
+                                           r_loc, k, nb, r_full, lane0);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ++*launched;
+  return (int)cudaSuccess;
 }
 
 // One launch per segment: segs holds the nseg ascending start steps on the
@@ -409,5 +481,54 @@ extern "C" int hbmc_trisolve_batched_f32(const void* cols, const void* vals,
   return launch_segments<float, false>(
       (const int32_t*)cols, (const float*)vals, (const float*)dinv,
       (const float*)q, (float*)y, s, r, k, nb, (const int32_t*)segs, nseg,
+      (cudaStream_t)stream, launched);
+}
+
+// The shard step (see shard_step): fused step g of the lane block [lane0,
+// lane0 + r_loc) of a table shard (2S, r_loc, K), reading q (S, r_full[, B])
+// and y (S*r_full[, B]) and writing the block's entries of y's slice
+// dest(g) in place; one launch.
+
+extern "C" int hbmc_trisolve_shard_step_f64(const void* cols,
+                                            const void* vals,
+                                            const void* dinv, const void* q,
+                                            void* y, int g, int s, int r_loc,
+                                            int k, int r_full, int lane0,
+                                            void* stream, int* launched) {
+  return launch_shard_step<double>(
+      (const int32_t*)cols, (const double*)vals, (const double*)dinv,
+      (const double*)q, (double*)y, g, s, r_loc, k, 1, r_full, lane0,
+      (cudaStream_t)stream, launched);
+}
+
+extern "C" int hbmc_trisolve_shard_step_f32(const void* cols,
+                                            const void* vals,
+                                            const void* dinv, const void* q,
+                                            void* y, int g, int s, int r_loc,
+                                            int k, int r_full, int lane0,
+                                            void* stream, int* launched) {
+  return launch_shard_step<float>(
+      (const int32_t*)cols, (const float*)vals, (const float*)dinv,
+      (const float*)q, (float*)y, g, s, r_loc, k, 1, r_full, lane0,
+      (cudaStream_t)stream, launched);
+}
+
+extern "C" int hbmc_trisolve_shard_step_batched_f64(
+    const void* cols, const void* vals, const void* dinv, const void* q,
+    void* y, int g, int s, int r_loc, int k, int nb, int r_full, int lane0,
+    void* stream, int* launched) {
+  return launch_shard_step<double>(
+      (const int32_t*)cols, (const double*)vals, (const double*)dinv,
+      (const double*)q, (double*)y, g, s, r_loc, k, nb, r_full, lane0,
+      (cudaStream_t)stream, launched);
+}
+
+extern "C" int hbmc_trisolve_shard_step_batched_f32(
+    const void* cols, const void* vals, const void* dinv, const void* q,
+    void* y, int g, int s, int r_loc, int k, int nb, int r_full, int lane0,
+    void* stream, int* launched) {
+  return launch_shard_step<float>(
+      (const int32_t*)cols, (const float*)vals, (const float*)dinv,
+      (const float*)q, (float*)y, g, s, r_loc, k, nb, r_full, lane0,
       (cudaStream_t)stream, launched);
 }

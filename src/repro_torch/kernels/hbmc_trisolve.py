@@ -26,6 +26,14 @@ counters beside them (``cuda_launches``, ``batched_cuda_launches``,
 ``sweep_cuda_launches``, ``sweep_batched_cuda_launches``) count the CUDA
 launches those calls issued, as the C entry points report them: one per
 segment.
+
+``hbmc_trisolve_shard_step`` and ``hbmc_trisolve_shard_step_batched`` run
+one fused step of one rank's lane block of a fused table sharded over a
+mesh axis (the per-device body of the reference's
+``core.trisolve._dist_substitute_fused``, which ``core.trisolve`` follows
+with an all-gather of the step's slice): one launch per call, counted in
+``shard_launches`` / ``shard_batched_launches`` and their ``*_cuda_``
+counters.
 """
 from __future__ import annotations
 
@@ -35,7 +43,8 @@ import torch
 from . import _build
 from .config import runs_plain
 from .ref import (hbmc_trisolve_batched_ref, hbmc_trisolve_fused_batched_ref,
-                  hbmc_trisolve_fused_ref, hbmc_trisolve_ref)
+                  hbmc_trisolve_fused_ref, hbmc_trisolve_ref,
+                  hbmc_trisolve_shard_step_ref)
 from .segments import barrier_segments
 
 launches = 0
@@ -46,6 +55,10 @@ cuda_launches = 0
 batched_cuda_launches = 0
 sweep_cuda_launches = 0
 sweep_batched_cuda_launches = 0
+shard_launches = 0
+shard_batched_launches = 0
+shard_cuda_launches = 0
+shard_batched_cuda_launches = 0
 
 _FLOATS = (torch.float64, torch.float32)
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
@@ -222,3 +235,90 @@ def hbmc_trisolve_batched(cols: torch.Tensor, vals: torch.Tensor,
     sweep_batched_launches += 1
     sweep_batched_cuda_launches += n
     return y
+
+
+def hbmc_trisolve_shard_step(cols: torch.Tensor, vals: torch.Tensor,
+                             dinv: torch.Tensor, q: torch.Tensor,
+                             y: torch.Tensor, g: int,
+                             lane0: int) -> torch.Tensor:
+    """Fused step ``g`` of the lane block ``[lane0, lane0 + r_loc)``, in
+    place.
+
+    Args:
+      cols, vals: (2S, r_loc, K) -- the block's lanes of a fused table of
+        ``r_full`` lanes (``hbmc_trisolve_fused``'s tables, lane-sharded).
+      dinv: (2S, r_loc).
+      q: (S, r_full) -- the whole right-hand side, round-major.
+      y: (S*r_full,) -- the whole state: slices before ``g`` (forward) or
+        all of them (backward) hold the earlier steps' results; a forward
+        step reads the slices at or after ``g`` as 0, whatever they hold.
+      g: the step, 0 <= g < 2S.
+      lane0: the block's first lane in the state.
+
+    Writes the block's ``r_loc`` entries of slice ``dest(g)`` of ``y``
+    (``g`` for a forward step, ``2S-1-g`` for a backward one) and returns
+    ``y``.  The arithmetic is ``hbmc_trisolve_fused``'s: with ``r_loc ==
+    r_full`` and ``lane0 == 0`` the 2S steps in order are bitwise one fused
+    apply.
+    """
+    global shard_launches, shard_cuda_launches
+    if q.dim() != 2:
+        raise ValueError(f"q must be (S, R), got {tuple(q.shape)}")
+    if runs_plain(q):
+        _check_shard(cols, vals, dinv, q, y, g, lane0)
+        return hbmc_trisolve_shard_step_ref(cols, vals, dinv, q, y, g, lane0)
+    shard_cuda_launches += _run_shard("hbmc_trisolve_shard_step", cols, vals,
+                                      dinv, q, y, g, lane0)
+    shard_launches += 1
+    return y
+
+
+def hbmc_trisolve_shard_step_batched(cols: torch.Tensor, vals: torch.Tensor,
+                                     dinv: torch.Tensor, q: torch.Tensor,
+                                     y: torch.Tensor, g: int,
+                                     lane0: int) -> torch.Tensor:
+    """Multi-RHS shard step: q (S, r_full, B), y (S*r_full, B), row-major.
+    Column j is bitwise ``hbmc_trisolve_shard_step`` on column j."""
+    global shard_batched_launches, shard_batched_cuda_launches
+    if q.dim() != 3:
+        raise ValueError(f"q must be (S, R, B), got {tuple(q.shape)}")
+    if runs_plain(q):
+        _check_shard(cols, vals, dinv, q, y, g, lane0)
+        return hbmc_trisolve_shard_step_ref(cols, vals, dinv, q, y, g, lane0)
+    shard_batched_cuda_launches += _run_shard(
+        "hbmc_trisolve_shard_step_batched", cols, vals, dinv, q, y, g, lane0)
+    shard_batched_launches += 1
+    return y
+
+
+def _check_shard(cols, vals, dinv, q, y, g: int, lane0: int) -> None:
+    """``_check`` on the table shard and ``q``, then ``y``, ``g`` and the
+    lane block against them."""
+    s2, r_loc, _ = cols.shape
+    if q.shape[0] * 2 != s2:
+        raise ValueError(f"q has {q.shape[0]} rounds, the table {s2} steps")
+    # the block's table shape is checked against its own lanes, q against
+    # the state's
+    _check(cols, vals, dinv, q)
+    r_full = q.shape[1]
+    if y.device != q.device or y.dtype != q.dtype or not y.is_contiguous():
+        raise ValueError(f"y must be a contiguous {q.dtype} tensor on "
+                         f"{q.device}")
+    if tuple(y.shape) != (q.shape[0] * r_full,) + tuple(q.shape[2:]):
+        raise ValueError(f"y shape {tuple(y.shape)} does not hold q "
+                         f"{tuple(q.shape)}")
+    if not (0 <= g < s2 and 0 <= lane0 and lane0 + r_loc <= r_full):
+        raise ValueError(f"step {g} of {s2}, lanes [{lane0}, "
+                         f"{lane0 + r_loc}) of {r_full}")
+
+
+def _run_shard(entry: str, cols, vals, dinv, q, y, g: int,
+               lane0: int) -> int:
+    """Check and launch a shard step; returns the CUDA launches (one)."""
+    _check_shard(cols, vals, dinv, q, y, g, lane0)
+    s2, r_loc, k_ = cols.shape
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    return _build.call(f"{entry}_{_SUFFIX[vals.dtype]}", cols.data_ptr(),
+                       vals.data_ptr(), dinv.data_ptr(), q.data_ptr(),
+                       y.data_ptr(), int(g), s2 // 2, r_loc, k_,
+                       *q.shape[2:], q.shape[1], int(lane0), stream)

@@ -3,7 +3,9 @@
 Counterparts of the six functions of ``repro.kernels.ref``
 (``hbmc_trisolve_ref``, ``hbmc_trisolve_batched_ref``,
 ``hbmc_trisolve_fused_ref``, ``hbmc_trisolve_fused_batched_ref``,
-``sell_spmv_ref`` and ``sell_spmv_batched_ref``), with the same op order:
+``sell_spmv_ref`` and ``sell_spmv_batched_ref``), and of the per-device
+step of the reference's ``core.trisolve._dist_substitute_fused``
+(``hbmc_trisolve_shard_step_ref``), with the same op order:
 an elementwise multiply, then a sum over K.  The sum runs over k in order,
 one rounded add at a time, as the CUDA kernels do, so column j of a batched
 version is bitwise equal to the single version on column j (``torch.sum``'s
@@ -16,19 +18,22 @@ from __future__ import annotations
 import torch
 
 
-def take_fill0(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def take_fill0(v: torch.Tensor, idx: torch.Tensor,
+               lim: int | None = None) -> torch.Tensor:
     """``jnp.take(v, idx, axis=0, fill_value=0)``.
 
     Gathers whole rows of ``v`` (``v`` may be 1-D or carry trailing
     dimensions, such as the B columns of a slab).  An index in
     ``[-len, 0)`` wraps, as in JAX; an index outside ``[-len, len)`` reads
     0.  The round-major packing uses the position ``S*R`` (one past the
-    end) as the "no lane" hole.
+    end) as the "no lane" hole.  With ``lim`` a (wrapped) index at or after
+    ``lim`` reads 0 too, as the trisolve kernels mask a forward step's reads
+    of slices not yet written.
     """
     n = v.shape[0]
     idx = idx.long()
     idx = torch.where(idx < 0, idx + n, idx)
-    inb = (idx >= 0) & (idx < n)
+    inb = (idx >= 0) & (idx < (n if lim is None else lim))
     got = v[torch.where(inb, idx, torch.zeros_like(idx))]
     inb = inb.reshape(inb.shape + (1,) * (v.dim() - 1))
     return torch.where(inb, got, torch.zeros_like(got))
@@ -43,12 +48,13 @@ def _sum_over_k(prod: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def _sweep_step(y: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
-                dinv: torch.Tensor, q_cur: torch.Tensor) -> torch.Tensor:
+                dinv: torch.Tensor, q_cur: torch.Tensor,
+                lim: int | None = None) -> torch.Tensor:
     """One round: ``(q_cur - sum_k vals * y[cols]) * dinv`` for its R lanes
-    (and B columns when ``y`` is (m, B))."""
+    (and B columns when ``y`` is (m, B)); ``lim`` as for ``take_fill0``."""
     extra = (1,) * (y.dim() - 1)
-    acc = _sum_over_k(vals.reshape(vals.shape + extra) * take_fill0(y, cols),
-                      dim=1)                                   # (R[, B])
+    acc = _sum_over_k(vals.reshape(vals.shape + extra)
+                      * take_fill0(y, cols, lim), dim=1)       # (R[, B])
     return (q_cur - acc) * dinv.reshape(dinv.shape + extra)
 
 
@@ -107,6 +113,30 @@ def hbmc_trisolve_fused_batched_ref(cols: torch.Tensor, vals: torch.Tensor,
     if q.dim() != 3:
         raise ValueError(f"q must be (S, R, B), got {tuple(q.shape)}")
     return hbmc_trisolve_fused_ref(cols, vals, dinv, q)
+
+
+def hbmc_trisolve_shard_step_ref(cols: torch.Tensor, vals: torch.Tensor,
+                                 dinv: torch.Tensor, q: torch.Tensor,
+                                 y: torch.Tensor, g: int,
+                                 lane0: int) -> torch.Tensor:
+    """Fused step ``g`` of one lane block of a fused table, in place.
+
+    ``cols``/``vals`` (2S, r_loc, K) and ``dinv`` (2S, r_loc) are the lanes
+    ``[lane0, lane0 + r_loc)`` of a fused table of ``r_full`` lanes; ``q``
+    (S, r_full[, B]) and ``y`` (S*r_full[, B]) are the whole right-hand
+    side and state.  Writes the block's entries of slice ``dest(g)`` of
+    ``y`` (``hbmc_trisolve_fused_ref``'s step, restricted to the block) and
+    returns ``y``.  A forward step reads the slices at or after ``g`` as 0,
+    whatever ``y`` holds there, as the kernel does.
+    """
+    s2, r_loc, _ = cols.shape
+    s_, r_full = s2 // 2, q.shape[1]
+    fwd = g < s_
+    dest = (g if fwd else s2 - 1 - g) * r_full + lane0
+    q_cur = q[g, lane0:lane0 + r_loc] if fwd else y[dest:dest + r_loc]
+    y[dest:dest + r_loc] = _sweep_step(y, cols[g], vals[g], dinv[g], q_cur,
+                                       g * r_full if fwd else None)
+    return y
 
 
 def sell_spmv_ref(vals: torch.Tensor, cols: torch.Tensor,

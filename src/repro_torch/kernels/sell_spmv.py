@@ -9,10 +9,16 @@ design and bound).  For a CPU tensor it runs the plain PyTorch version in
 gone.  ``batched_launch`` picks the batched kernel's variant and launch
 shape; it is plain Python, so the CPU tests reach it.
 
+``sell_spmv_block`` is the port of the reference's ``sell_spmv_block``,
+the per-device SpMV of a mesh: a rank's slice shard against the replicated
+x, through the same two kernels.
+
 ``launches`` / ``batched_launches`` count the wrapper calls that launched
 the single-RHS / batched CUDA kernel, ``cuda_launches`` /
 ``batched_cuda_launches`` the CUDA launches they issued (one per call), as
-the C entry points report them.
+the C entry points report them; ``block_launches`` /
+``block_cuda_launches`` count the same for ``sell_spmv_block``'s calls
+(which count in the kernel's own counters too).
 """
 from __future__ import annotations
 
@@ -28,6 +34,8 @@ launches = 0
 batched_launches = 0
 cuda_launches = 0
 batched_cuda_launches = 0
+block_launches = 0
+block_cuda_launches = 0
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 
@@ -160,4 +168,28 @@ def sell_spmv_batched(vals: torch.Tensor, cols: torch.Tensor,
                 launch.k_unrolled, launch.blocks, launch.threads)
     batched_launches += 1
     batched_cuda_launches += n
+    return y
+
+
+def sell_spmv_block(vals: torch.Tensor, cols: torch.Tensor,
+                    x: torch.Tensor) -> torch.Tensor:
+    """Per-device block SpMV of a mesh (``core.iccg.make_sharded_spmv``).
+
+    ``vals``/``cols`` are the device-local slice shard ((s_loc, K, w));
+    ``x`` is the replicated input ((n_pad,) or (n_pad, B)) indexed by
+    global positions, so the local gather needs no index translation.
+    Returns the local row block ((s_loc * w,) or (s_loc * w, B)); the
+    caller assembles the full result with one all-gather.  Runs
+    ``sell_spmv`` (B2) for a 1-D ``x`` and ``sell_spmv_batched`` (B4) for a
+    2-D one: their kernels on the card, their plain versions on the CPU.
+    """
+    global block_launches, block_cuda_launches
+    if x.dim() not in (1, 2):
+        raise ValueError(f"x must be (n,) or (n, B), got {tuple(x.shape)}")
+    before = cuda_launches + batched_cuda_launches
+    y = sell_spmv(vals, cols, x) if x.dim() == 1 else \
+        sell_spmv_batched(vals, cols, x)
+    if not runs_plain(x):
+        block_launches += 1
+        block_cuda_launches += cuda_launches + batched_cuda_launches - before
     return y

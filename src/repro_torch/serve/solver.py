@@ -109,6 +109,7 @@ class PlanKey:
     dtype: str
     layout: str
     device: str
+    lane_multiple: int = 1
     on_breakdown: str = "clamp"
     scheduler: str = "coloring"
 
@@ -128,20 +129,16 @@ class PlanKey:
         ``"sell"`` or ``"ell"``; an unknown value raises ``ValueError``
         before the matrix is hashed.  The JAX-only knobs (``backend``,
         ``spmv_backend``, ``interpret``) are unknown knobs here
-        (``TypeError``).  ``mesh=`` and ``lane_multiple != 1`` belong to the
-        port's mesh slice (``ValueError``).
+        (``TypeError``).  A mesh plan is refused (``ValueError``), as in
+        the reference; ``lane_multiple`` is part of the key.
         """
         if extra.get("mesh") is not None:
-            raise ValueError("mesh plans are not cacheable, and mesh= is not "
-                             "ported (it comes with the port's mesh slice); "
-                             "serve single-device plans")
+            raise ValueError("mesh plans are not cacheable: a mesh binds "
+                             "the plan to a device set; serve single-device "
+                             "plans (or shard outside the service)")
         extra.pop("mesh", None)
         if extra:
             raise TypeError(f"unknown plan knobs: {sorted(extra)}")
-        if int(lane_multiple) != 1:
-            raise ValueError(f"lane_multiple={lane_multiple} is not ported "
-                             "(it comes with the port's mesh slice); the "
-                             "port serves lane_multiple=1")
         if dtype not in _NP_DTYPES:
             raise TypeError(f"dtype must be torch.float64 or torch.float32, "
                             f"got {dtype}")
@@ -157,6 +154,7 @@ class PlanKey:
                   shift=float(shift), spmv_format=spmv_format,
                   dtype=str(np.dtype(_NP_DTYPES[dtype])), layout=layout,
                   device=str(resolve_device(device)),
+                  lane_multiple=int(lane_multiple),
                   on_breakdown=on_breakdown, scheduler=scheduler)
         return key, a
 
@@ -276,7 +274,6 @@ class PlanCache:
             self.stats.refactors += 1
             return entry.plan, "refactor"
         knobs.pop("mesh", None)             # validated None by the key
-        knobs.pop("lane_multiple", None)    # validated 1 by the key
         plan = self._build(a, **knobs)
         self._entries[key] = _CacheEntry(plan=plan, values_fp=vfp,
                                          pins=int(pin))

@@ -31,9 +31,11 @@ from repro.serve.faults import near_singular_matrix
 from repro_torch.core import build_plan, pcg_batched, solve_iccg_batched
 from repro_torch.core import status_name
 from repro_torch.kernels import (hbmc_trisolve_batched, hbmc_trisolve_fused,
-                                 hbmc_trisolve_fused_batched, launch_counts,
-                                 reset_launch_counts, sell_spmv,
-                                 sell_spmv_batched)
+                                 hbmc_trisolve_fused_batched,
+                                 hbmc_trisolve_shard_step_batched,
+                                 launch_counts, reset_launch_counts,
+                                 sell_spmv, sell_spmv_batched,
+                                 sell_spmv_block)
 from repro_torch.kernels.sell_spmv import MAX_UNROLL_K, batched_launch
 
 BS, W = 8, 4
@@ -209,10 +211,20 @@ def test_batched_wrappers_validate_and_count_no_cpu_launch():
                       torch.zeros(2, 1, 4, dtype=torch.int32),
                       torch.zeros(8, 2, dtype=torch.float64))
     hbmc_trisolve_batched(cols[:2], vals[:2], dinv[:2], q)
+    hbmc_trisolve_shard_step_batched(cols, vals, dinv, q,
+                                     torch.zeros(q.shape[0] * q.shape[1],
+                                                 q.shape[2],
+                                                 dtype=torch.float64), 3, 0)
+    sell_spmv_block(torch.zeros(2, 1, 4, dtype=torch.float64),
+                    torch.zeros(2, 1, 4, dtype=torch.int32),
+                    torch.zeros(8, 2, dtype=torch.float64))
     assert launch_counts() == {"hbmc_trisolve_fused": 0, "sell_spmv": 0,
                                "hbmc_trisolve_fused_batched": 0,
                                "sell_spmv_batched": 0, "hbmc_trisolve": 0,
-                               "hbmc_trisolve_batched": 0}
+                               "hbmc_trisolve_batched": 0,
+                               "hbmc_trisolve_shard_step": 0,
+                               "hbmc_trisolve_shard_step_batched": 0,
+                               "sell_spmv_block": 0}
     with pytest.raises(ValueError, match="q shape"):
         hbmc_trisolve_fused_batched(cols, vals, dinv, q[..., 0])
     meta = dict(device="meta")

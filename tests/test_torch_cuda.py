@@ -30,10 +30,15 @@ from repro_torch.kernels import (hbmc_trisolve, hbmc_trisolve_batched,
                                  hbmc_trisolve_fused_batched,
                                  hbmc_trisolve_fused_batched_ref,
                                  hbmc_trisolve_fused_ref, hbmc_trisolve_ref,
-                                 sell_spmv, sell_spmv_batched,
-                                 sell_spmv_batched_ref, sell_spmv_ref)
+                                 hbmc_trisolve_shard_step,
+                                 hbmc_trisolve_shard_step_batched,
+                                 hbmc_trisolve_shard_step_ref, sell_spmv,
+                                 sell_spmv_batched, sell_spmv_batched_ref,
+                                 sell_spmv_block, sell_spmv_ref)
 from repro_torch.kernels.segments import barrier_segments, step_dest
 from repro_torch.serve import SolverService, VirtualClock
+
+from _torch_mesh_worker import shard_apply
 
 pytestmark = pytest.mark.cuda
 
@@ -573,7 +578,8 @@ def test_segment_arguments_are_checked(cuda):
 
 def test_cuda_launch_counts_per_kernel(cuda):
     """The CUDA launches each wrapper reports: one per segment of B1 / B3 /
-    B5 / B6, one per call of B2 / B4."""
+    B5 / B6, one per call of B2 / B4 and of the shard steps;
+    ``sell_spmv_block``'s are B4's too."""
     a, _ = paper_problem("ieej", scale="tiny")
     kw = dict(block_size=16, w=8, device=cuda)
     plan, plan_idx = build_plan(a, **kw), build_plan(a, layout="index", **kw)
@@ -595,12 +601,21 @@ def test_cuda_launch_counts_per_kernel(cuda):
                           segments=sw.segments)
     sell_spmv(sv, sc, x[:, 0].contiguous())
     sell_spmv_batched(sv, sc, x)
+    y = torch.empty(t.n_steps * t.lanes, 3, dtype=q.dtype, device=cuda)
+    hbmc_trisolve_shard_step(t.cols, t.vals, t.dinv,
+                             q[..., 0].contiguous(), y[:, 0].contiguous(), 0,
+                             0)
+    hbmc_trisolve_shard_step_batched(t.cols, t.vals, t.dinv, q, y, 0, 0)
+    sell_spmv_block(sv, sc, x)
     assert kernels.cuda_launch_counts() == {
         "hbmc_trisolve_fused": t.segments.size, "sell_spmv": 1,
         "hbmc_trisolve_fused_batched": t.segments.size,
-        "sell_spmv_batched": 1, "hbmc_trisolve": sw.segments.size,
-        "hbmc_trisolve_batched": sw.segments.size}
-    assert set(kernels.launch_counts().values()) == {1}
+        "sell_spmv_batched": 2, "hbmc_trisolve": sw.segments.size,
+        "hbmc_trisolve_batched": sw.segments.size,
+        "hbmc_trisolve_shard_step": 1,
+        "hbmc_trisolve_shard_step_batched": 1, "sell_spmv_block": 1}
+    assert kernels.launch_counts() == {
+        **dict.fromkeys(kernels.launch_counts(), 1), "sell_spmv_batched": 2}
 
 
 @pytest.mark.parametrize("fused", [True, False])
@@ -699,3 +714,118 @@ def test_capture_count_stays_one_across_warm_solves_and_refactor(cuda):
     cold = build_plan(a2, block_size=8, w=4, device=cuda).solve(b)
     assert rep.result.iterations == cold.result.iterations
     np.testing.assert_array_equal(rep.x, cold.x)
+
+
+# ---------------------------------------------------------------------------
+# The mesh path: the shard step, sell_spmv_block, a one-rank NCCL mesh.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("nb", [None, 3, 8], ids=["single", "B3", "B8"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_shard_step_bitwise_plain_and_per_step_cut(cuda, dtype, nb):
+    """The shard step over the whole lane range (lane0 = 0, r_loc = r_full)
+    on a NaN-filled y: bitwise its plain version and B1's / B3's per-step
+    cut."""
+    a, _ = paper_problem("thermal2", scale="tiny")
+    plan = build_plan(a, block_size=8, w=4, dtype=dtype, device=cuda)
+    t = plan._precond.tables
+    rng = np.random.default_rng(12)
+    shape = (t.n_steps, t.lanes) + (() if nb is None else (nb,))
+    q = torch.tensor(rng.normal(size=shape), device=cuda).to(dtype)
+    before = kernels.launch_counts()
+    (got,) = shard_apply(t, q, 1)
+    name = "hbmc_trisolve_shard_step" + ("" if nb is None else "_batched")
+    assert kernels.launch_counts()[name] - before[name] == 2 * t.n_steps
+    cpu = [u.cpu() for u in (t.cols, t.vals, t.dinv, q)]
+    y = torch.full(got.shape, float("nan"), dtype=dtype)
+    for g in range(2 * t.n_steps):
+        hbmc_trisolve_shard_step_ref(*cpu, y, g, 0)
+    torch.testing.assert_close(got.cpu(), y, rtol=0, atol=0)
+    b1 = hbmc_trisolve_fused if nb is None else hbmc_trisolve_fused_batched
+    cut = b1(t.cols, t.vals, t.dinv, q, segments=np.arange(2 * t.n_steps))
+    torch.testing.assert_close(got, cut, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("nb", [None, 8], ids=["single", "B8"])
+def test_shard_step_two_way_split_bitwise_b1(cuda, nb):
+    """Two lane blocks run in turn on one card, their updates gathered by
+    hand after every step: each replica is bitwise B1 / B3 with its
+    segments."""
+    a = laplace_2d(30, 27)
+    plan = build_plan(a, block_size=8, w=4, lane_multiple=2, device=cuda)
+    t = plan._precond.tables
+    rng = np.random.default_rng(13)
+    shape = (t.n_steps, t.lanes) + (() if nb is None else (nb,))
+    q = torch.tensor(rng.normal(size=shape), device=cuda)
+    b1 = hbmc_trisolve_fused if nb is None else hbmc_trisolve_fused_batched
+    want = b1(t.cols, t.vals, t.dinv, q, segments=t.segments)
+    for y in shard_apply(t, q, 2):
+        torch.testing.assert_close(y, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("nb", [None, 8], ids=["single", "B8"])
+def test_sell_spmv_block_is_rows_of_b2_b4(cuda, nb):
+    a = laplace_2d(30, 27)
+    plan = build_plan(a, block_size=8, w=4, device=cuda)
+    sv, sc = plan._spmv_vals, plan._spmv_cols
+    x = torch.tensor(np.random.default_rng(14).normal(
+        size=(sv.shape[0] * sv.shape[2],) + (() if nb is None else (nb,))),
+        device=cuda)
+    lo, hi, w = 3, sv.shape[0] - 2, sv.shape[2]
+    kernels.reset_launch_counts()
+    got = sell_spmv_block(sv[lo:hi].contiguous(), sc[lo:hi].contiguous(), x)
+    assert kernels.launch_counts()["sell_spmv_block"] == 1
+    whole = (sell_spmv if nb is None else sell_spmv_batched)(sv, sc, x)
+    torch.testing.assert_close(got, whole[lo * w:hi * w], rtol=0, atol=0)
+
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """A one-rank NCCL group and its ``("data",)`` CUDA mesh."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_one_rank_nccl_mesh_plan_bitwise_single_device(nccl_mesh):
+    """A mesh plan on one NCCL rank with lane_multiple = 4: solve,
+    solve_batched and solve_slab bitwise the single-device plan with the
+    same lane_multiple; the shard steps and sell_spmv_block launch, B1 /
+    B3 do not."""
+    from repro_torch.core import mesh as mesh_mod
+    a = laplace_2d(30, 27)
+    rng = np.random.default_rng(15)
+    b, bb = rng.normal(size=a.shape[0]), rng.normal(size=(a.shape[0], 8))
+    kw = dict(block_size=8, w=4, lane_multiple=4)
+    ref = build_plan(a, device="cuda", **kw)
+    plan = build_plan(a, mesh=nccl_mesh, **kw)
+    assert plan.device.type == "cuda" and plan.lane_multiple == 4
+    _reset_counts()
+    mesh_mod.reset_gather_counts()
+    rep = plan.solve(b)
+    counts = kernels.launch_counts()
+    k, blocks = _blocks(rep.result.iterations)
+    assert device_loop.loop_counts()["captures"] == 1    # NCCL in the graph
+    applies = 1 + k * blocks
+    assert counts == _launched(
+        hbmc_trisolve_shard_step=2 * plan.n_rounds * applies,
+        sell_spmv=k * blocks, sell_spmv_block=k * blocks)
+    assert mesh_mod.gather_counts() == {
+        "trisolve": 2 * plan.n_rounds * applies, "spmv": k * blocks}
+    want = ref.solve(b)
+    assert rep.result.iterations == want.result.iterations
+    np.testing.assert_array_equal(rep.x, want.x)
+    rb, want_b = plan.solve_batched(bb), ref.solve_batched(bb)
+    np.testing.assert_array_equal(rb.result.iterations,
+                                  want_b.result.iterations)
+    np.testing.assert_array_equal(rb.x, want_b.x)
+    rs, want_s = plan.solve_slab(b, 8, slot=5), ref.solve_slab(b, 8, slot=5)
+    np.testing.assert_array_equal(rs.x, want_s.x)
+    warm = plan.solve(b)
+    np.testing.assert_array_equal(warm.x, rep.x)

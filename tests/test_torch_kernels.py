@@ -21,8 +21,9 @@ from repro.kernels.ref import hbmc_trisolve_fused_ref as j_trisolve_ref
 from repro.kernels.ref import sell_spmv_ref as j_sell_spmv_ref
 from repro_torch.core import build_plan, paper_problem
 from repro_torch.kernels import (hbmc_trisolve, hbmc_trisolve_fused,
-                                 launch_counts, reset_launch_counts,
-                                 sell_spmv, take_fill0)
+                                 hbmc_trisolve_shard_step, launch_counts,
+                                 reset_launch_counts, sell_spmv,
+                                 sell_spmv_block, take_fill0)
 from repro_torch.kernels.segments import barrier_segments
 
 DTYPES = [(np.float64, torch.float64, 1e-12), (np.float32, torch.float32, 1e-5)]
@@ -184,10 +185,19 @@ def test_cpu_wrappers_count_no_launch():
               torch.zeros(8, dtype=torch.float64))
     hbmc_trisolve(torch.from_numpy(cols[:2]), torch.from_numpy(vals[:2]),
                   torch.from_numpy(dinv[:2]), torch.from_numpy(q))
+    hbmc_trisolve_shard_step(*(torch.from_numpy(t) for t in (cols, vals,
+                                                            dinv, q)),
+                             torch.zeros(q.size, dtype=torch.float64), 0, 0)
+    sell_spmv_block(torch.zeros(2, 1, 4, dtype=torch.float64),
+                    torch.zeros(2, 1, 4, dtype=torch.int32),
+                    torch.zeros(8, dtype=torch.float64))
     assert launch_counts() == {"hbmc_trisolve_fused": 0, "sell_spmv": 0,
                                "hbmc_trisolve_fused_batched": 0,
                                "sell_spmv_batched": 0, "hbmc_trisolve": 0,
-                               "hbmc_trisolve_batched": 0}
+                               "hbmc_trisolve_batched": 0,
+                               "hbmc_trisolve_shard_step": 0,
+                               "hbmc_trisolve_shard_step_batched": 0,
+                               "sell_spmv_block": 0}
 
 
 def test_wrappers_raise_off_cpu_and_cuda():

@@ -279,11 +279,14 @@ def test_resolve_device_rejects_other_devices():
         resolve_device("meta")
 
 
-@pytest.mark.parametrize("bad", [dict(validate="cheap"),
-                                 dict(mesh=object())],
+@pytest.mark.parametrize("bad,err,match",
+                         [(dict(validate="cheap"), ValueError, "not ported"),
+                          (dict(mesh=object()), TypeError, "DeviceMesh")],
                          ids=["validate", "mesh"])
-def test_unported_options_raise(bad):
-    with pytest.raises(ValueError, match="not ported"):
+def test_unported_options_raise(bad, err, match):
+    """``validate`` is not ported; ``mesh=`` is (tests/test_torch_mesh.py)
+    and refuses anything but a ``DeviceMesh``."""
+    with pytest.raises(err, match=match):
         build_plan(laplace_2d(6, 6), block_size=BS, w=W, device="cpu", **bad)
 
 

@@ -439,10 +439,14 @@ def test_plan_key_knobs_follow_the_port():
                      dict(interpret=True)):
         with pytest.raises(TypeError, match="unknown plan knobs"):
             PlanKey.from_matrix(a, **KNOBS, **jax_only)
-    with pytest.raises(ValueError, match="mesh"):
+    with pytest.raises(ValueError, match="mesh plans are not cacheable"):
         PlanKey.from_matrix(a, mesh=object(), **KNOBS)
-    with pytest.raises(ValueError, match="lane_multiple.*mesh slice"):
-        PlanKey.from_matrix(a, lane_multiple=8, **KNOBS)
+    # lane_multiple is a knob of the key, as in the reference
+    key8, _ = PlanKey.from_matrix(a, lane_multiple=8, **KNOBS)
+    assert key8.lane_multiple == 8 and key8 != key
+    plan8, _ = PlanCache().get(a, lane_multiple=8, **KNOBS)
+    assert plan8.lane_multiple == 8
+    assert plan8._precond.tables.lanes % 8 == 0
     with pytest.raises(ValueError, match="not ported.*analysis slice"):
         PlanCache(validate="cheap")
     with pytest.raises(TypeError, match="unknown plan knobs"):
