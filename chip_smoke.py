@@ -73,7 +73,9 @@ its last line:
    launch per step; device time of each under the profiler), per SpMV,
    per PCG iteration, the plain versions, and the cuSPARSE CSR SpMV
    (``torch.mv`` on a CSR tensor, timed as a yardstick only; the port
-   never calls it); the same at B = 8 for the batched kernels (cuSPARSE
+   never calls it), B2 through its wrapper and through the wrapper's
+   undecorated body in turns (what the wrappers' bookkeeping for
+   ``repro_torch.analysis`` costs a host-issued call); the same at B = 8 for the batched kernels (cuSPARSE
    SpMM, ``torch.sparse.mm``, as B4's yardstick; B4's variant, registers
    and launch shape, B4 on local cols (each row's entries at the row
    itself: x read once, in order), its scalar variant on an x one element
@@ -103,7 +105,26 @@ its last line:
    inside ("graph: true").  ms per iteration beside the single-device
    plan's, a ``refactor`` round trip keeping the capture, and the shard
    steps' and ``sell_spmv_block``'s times against their plain versions
-   and bounds; then the group is destroyed.
+   and bounds; before the group is destroyed, phase 3g's mesh part:
+   ``analysis.check_plan_collectives`` (2S all-gathers an apply, one a
+   SpMV, no all-reduce in a solve) and the shard step's kernel checks.
+3g. Analysis (``repro_torch.analysis``), run after 3f, on the 1M matrix:
+   ``validate_plan`` in the modes cheap, full and deep on a plan built with
+   ``validate="off"``, each timed ("full" includes ``check_segments`` on
+   the (64, 32768, 4) fused table, whose segments it computes), and
+   ``build_plan(validate=m)`` for each mode with its ``pack`` seconds;
+   ``check_plan_kernels`` at B = 1 and 8 and the launch shapes;
+   ``traffic_report`` (the reference's static terms, and the kernel terms
+   with the bytes the wrappers saw in one apply and one SpMV); the op
+   budgets of the eager apply, SpMV and PCG iteration and the dtype flow
+   of the seven paths, with B1 / B2 as opaque nodes; the fused table's cut
+   with its middle start removed (``[0, 48]`` for ``[0, 16, 48]``), which
+   ``check_segments`` must witness as a segment race and which is never
+   launched; a second service run of 8 requests through
+   ``PlanCache(validate="full")``, with the admission's seconds; and
+   ``python -m repro_torch.analysis --problems laplace2d,thermal2 --scale
+   tiny --validate deep --dtype-flow --contracts --traffic`` in a
+   subprocess, which must exit 0.  Every finding list must be empty.
 
 Its last lines: one JSON object with a row per kernel (``launches`` are
 wrapper calls on the main path, ``cuda_launches`` the CUDA launches they
@@ -121,11 +142,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
-
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, and vector
-# (non-tensor-core) rates for the element types the kernels use
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"torch.float64": 34e12, "torch.float32": 67e12}
 
 MAIN_GRID = 1024            # laplace_2d(1024, 1024): n = 1,048,576
 MAIN_ITERATIONS, ITER_BAND = 48, 2
@@ -265,30 +281,6 @@ def fmt_ms(ms: float | None) -> str:
 def spread(ms: list[float]) -> str:
     return (f"median {ms[len(ms) // 2]:.4f} (min {ms[0]:.4f}, max "
             f"{ms[-1]:.4f}, {len(ms)} solves)")
-
-
-def trisolve_bytes(tables, q) -> int:
-    """Each input read once, the (S*R[, B]) output written once."""
-    return (tables.cols.numel() * tables.cols.element_size()
-            + tables.vals.numel() * tables.vals.element_size()
-            + tables.dinv.numel() * tables.dinv.element_size()
-            + 2 * q.numel() * q.element_size())
-
-
-def spmv_bytes(vals, cols, x) -> int:
-    """vals, cols and x (n[, B]) read once, y (n_rows[, B]) written once."""
-    n_rows = vals.shape[0] * vals.shape[2]
-    n_cols = x.numel() // x.shape[0]
-    return (vals.numel() * vals.element_size()
-            + cols.numel() * cols.element_size()
-            + x.numel() * x.element_size()
-            + n_rows * n_cols * x.element_size())
-
-
-def bound(n_bytes: int, n_ops: int, dtype) -> tuple[float, str]:
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_OPS_PER_S[str(dtype)] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def check_kernels(plan, label: str, seed: int) -> dict:
@@ -1266,6 +1258,143 @@ def smoother_phase(plan_idx, b, device: str) -> float:
     return sweep_ms
 
 
+def analysis_phase(a, plan_kw: dict, on_card: bool) -> None:
+    """Phase 3g: ``repro_torch.analysis`` on the 1M plan.  The validation
+    seconds of each mode, timed as ``validate_plan`` on one plan built with
+    ``validate="off"`` (in the order cheap, full, deep: "full" computes the
+    fused table's segments, which "deep" then finds) and as the share of
+    the build (``plan.timings.pack``) with ``build_plan(validate=m)``; the
+    kernel checks, the traffic terms with the bytes the wrappers saw, the
+    op budgets and the dtype flow of the eager apply, SpMV and first block;
+    a doctored cut of the fused table (its middle start removed), which
+    ``check_segments`` must witness and which is never launched; a service
+    run with ``PlanCache(validate="full")`` admission; and the CLI in a
+    subprocess.  Every finding list must be empty."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import (FULL_PALLAS_ITERATION, PALLAS_SPMV,
+                                      PRECONDITIONED_ITERATION,
+                                      ROUND_MAJOR_APPLY,
+                                      check_plan_dtype_flow,
+                                      check_plan_kernels, check_segments,
+                                      lint, plan_launches, traffic_report,
+                                      validate_plan)
+    from repro_torch.analysis.dtype_flow import nonzero_rhs
+    from repro_torch.analysis.traffic import compare_traffic
+    from repro_torch.core import build_plan, pcg_iteration
+    from repro_torch.serve import PlanCache, SolverService, WallClock
+
+    def expect_clean(what: str, found: list) -> None:
+        log(f"  {what}: {[str(v) for v in found]}")
+        if found:
+            raise AssertionError(f"{what}: {found}")
+
+    t0 = time.perf_counter()
+    plan = build_plan(a, **plan_kw)
+    off_s = time.perf_counter() - t0
+    log(f"build_plan(validate='off') {off_s:.3f} s (pack "
+        f"{plan.timings.pack:.3f} s)")
+    for mode in ("cheap", "full", "deep"):
+        t0 = time.perf_counter()
+        found = validate_plan(plan, mode)
+        log(f"validate_plan(plan, {mode!r}): "
+            f"{time.perf_counter() - t0:.3f} s")
+        expect_clean(f"validate {mode}", found)
+    t = plan._precond.tables
+    cols = t.cols.cpu().numpy()
+    t0 = time.perf_counter()
+    found = check_segments(cols, t.segments, True, where="segments/fused")
+    log(f"check_segments on the {tuple(cols.shape)} table, segments "
+        f"{t.segments.tolist()}: {time.perf_counter() - t0:.3f} s")
+    expect_clean("check_segments", found)
+    for mode in ("cheap", "full", "deep"):
+        t0 = time.perf_counter()
+        p = build_plan(a, validate=mode, **plan_kw)
+        log(f"build_plan(validate={mode!r}) {time.perf_counter() - t0:.3f} "
+            f"s: pack {p.timings.pack:.3f} s, off's {plan.timings.pack:.3f}"
+            f" (validation is in pack)")
+        del p
+
+    # the doctored cut: the fused table's middle start removed
+    seg = t.segments
+    coarse = np.delete(seg, seg.size // 2)
+    found = check_segments(cols, coarse, True, where="segments/fused")
+    log(f"doctored cut {coarse.tolist()} (of {seg.tolist()}): "
+        f"{len(found)} witness(es), first {found[0] if found else None}")
+    if not found or {v.kind for v in found} != {"segment-race"}:
+        raise AssertionError(f"the doctored cut was not witnessed: {found}")
+
+    expect_clean("check_plan_kernels B=1", check_plan_kernels(plan))
+    expect_clean(f"check_plan_kernels B={BATCH}",
+                 check_plan_kernels(plan, BATCH))
+    log(f"  launches B=1 {plan_launches(plan)}; B={BATCH} "
+        f"{plan_launches(plan, BATCH)}")
+    rep = traffic_report(plan)
+    for term in rep.terms + rep.kernel_terms:
+        log(f"  traffic {term.name}: static {term.static_bytes:.0f} B, "
+            f"measured {term.measured_bytes} ({term.detail})")
+    log(f"  iteration {rep.iteration_bytes / 1e6:.1f} MB, "
+        f"{rep.arithmetic_intensity:.3f} flop/B")
+    expect_clean("traffic", compare_traffic(rep.terms + rep.kernel_terms))
+    if [t_.name for t_ in rep.kernel_terms] != ["kernel/apply",
+                                                "kernel/spmv"]:
+        raise AssertionError(f"kernel terms {rep.kernel_terms}")
+    q = nonzero_rhs(plan)
+    steps = 2 * plan.n_rounds
+    step = pcg_iteration(plan._spmv, plan._precond)
+    args = (torch.zeros_like(q), q, q.clone(),
+            torch.ones((), dtype=plan.dtype, device=plan.device))
+    expect_clean("lint apply", lint(plan._precond, q,
+                                    budget=ROUND_MAJOR_APPLY))
+    expect_clean("lint SpMV", lint(plan._spmv, q, budget=PALLAS_SPMV))
+    for budget in (FULL_PALLAS_ITERATION, PRECONDITIONED_ITERATION):
+        expect_clean(f"lint iteration {budget.name}",
+                     lint(step, *args, budget=budget, steps=steps))
+    t0 = time.perf_counter()
+    found = check_plan_dtype_flow(plan)
+    log(f"  dtype flow of 7 paths: {time.perf_counter() - t0:.3f} s")
+    expect_clean("dtype flow", found)
+    del plan
+
+    # admission: a second service run, PlanCache(validate="full")
+    rng = np.random.default_rng(13)
+    cache = PlanCache(validate="full")
+    svc = SolverService(cache=cache, slab_width=BATCH, quantum=SERVE_QUANTUM,
+                        clock=WallClock(), **plan_kw)
+    t0 = time.perf_counter()
+    rids = [svc.submit(a, rng.normal(size=a.shape[0]))
+            for _ in range(BATCH)]
+    svc.drain()
+    wall = time.perf_counter() - t0
+    statuses = {svc.completed[r].status for r in rids}
+    plan, _ = cache.get(a, **plan_kw)
+    log(f"service with PlanCache(validate='full'): {len(rids)} requests in "
+        f"{wall:.3f} s, plan build {plan.timings.total:.3f} s, admission "
+        f"{cache.stats.admission_seconds:.3f} s; statuses {statuses}")
+    if statuses != {"CONVERGED"} or cache.stats.misses != 1:
+        raise AssertionError(f"admitted service run: {statuses}, "
+                             f"{cache.stats}")
+    del plan, svc, cache
+
+    cmd = [sys.executable, "-m", "repro_torch.analysis", "--problems",
+           "laplace2d,thermal2", "--scale", "tiny", "--validate", "deep",
+           "--dtype-flow", "--contracts", "--traffic", "--device",
+           plan_kw["device"]]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         timeout=600)
+    log(f"CLI {' '.join(cmd[1:])}: exit {out.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{out.stdout.strip().splitlines()[-1:]}")
+    if out.returncode != 0:
+        raise AssertionError(f"analysis CLI failed:\n{out.stdout}\n"
+                             f"{out.stderr}")
+
+
 def mesh_phase(a, plan_kw: dict, b, b8, iterations, on_card: bool,
                reps: int) -> list[dict]:
     """Phase 3f: the mesh path at world size 1 (NCCL on the card, gloo on
@@ -1305,10 +1434,27 @@ def mesh_phase(a, plan_kw: dict, b, b8, iterations, on_card: bool,
                                     on_card, reps)
             profile_solve(plan, b, b8, tag="mesh ")
             rows = _mesh_kernel_times(plan, launched, reps)
+            mesh_analysis(plan)
         finally:
             dist.destroy_process_group()
     log(f"process group destroyed: initialized={dist.is_initialized()}")
     return rows
+
+
+def mesh_analysis(plan) -> None:
+    """Phase 3g on the mesh of 3f: the collective structure of the mesh
+    plan (2S all-gathers an apply, one a SpMV, no all-reduce in a solve)
+    and its kernel checks (the shard step on the rank's lane block)."""
+    from repro_torch.analysis import (check_plan_collectives,
+                                      check_plan_kernels, plan_launches)
+    t0 = time.perf_counter()
+    found = check_plan_collectives(plan)
+    found += check_plan_kernels(plan) + check_plan_kernels(plan, BATCH)
+    log(f"3g mesh: check_plan_collectives + check_plan_kernels "
+        f"{time.perf_counter() - t0:.3f} s: {[str(v) for v in found]}; "
+        f"launches {plan_launches(plan)}")
+    if found:
+        raise AssertionError(f"mesh plan analysis: {found}")
 
 
 def _mesh_solves(plan, ref, a, b, b8, iterations, on_card: bool,
@@ -1432,6 +1578,7 @@ def _mesh_kernel_times(plan, launched: dict, reps: int) -> list[dict]:
     import scipy.sparse as sp
     import torch
 
+    from repro_torch.analysis.traffic import bound, spmv_bytes
     from repro_torch.core.mesh import axis_group
     from repro_torch.core.sell import permute_round_major
     from repro_torch.kernels import (hbmc_trisolve_shard_step,
@@ -1579,6 +1726,8 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     import torch
 
     from repro_torch import kernels
+    from repro_torch.analysis.traffic import (bound, spmv_bytes,
+                                              trisolve_bytes)
     from repro_torch.core import (PAPER_PROBLEMS, PAPER_SHIFTS, build_plan,
                                   paper_problem)
     from repro_torch.core.sell import permute_round_major
@@ -1807,6 +1956,14 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     spmv_ms = time_ms(lambda: sell_spmv(sv, sc, x), 4 * reps, dev)
     spmv_plain_ms = time_ms(lambda: sell_spmv_ref(sv, sc, x), reps, dev)
     spmv_lib_ms = time_ms(lambda: torch.mv(a_lib, x), 4 * reps, dev)
+    # what the wrappers' bookkeeping (kernels/_trace.py: the depth mark and
+    # the operand bytes) costs a host-issued call: B2 through its wrapper
+    # and through the undecorated body, in turns A B B A
+    bare = sell_spmv.__wrapped__
+    b2_turns = [time_ms(lambda f=f: f(sv, sc, x), 4 * reps, dev)
+                for f in (sell_spmv, bare, bare, sell_spmv)]
+    log("B2 host-issued, wrapper / undecorated body / undecorated body / "
+        "wrapper: " + " / ".join(f"{v:.4f}" for v in b2_turns) + " ms")
     solve_reps = 5 if on_card else 1
     iter_ms = loop_ms(plan.solve, b, solve_reps)
 
@@ -2025,6 +2182,12 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
         f"solve_batched B={BATCH}")
     rows += mesh_phase(a_main, plan_kw, b, b8, iterations, on_card,
                        solve_reps)
+
+    # -- 3g. analysis ---------------------------------------------------------
+    log(f"== 3g. analysis: validate cheap / full / deep, kernel checks, "
+        f"traffic, linters, a doctored cut, admission and the CLI, same "
+        f"matrix (the mesh part ran in 3f)")
+    analysis_phase(a_main, plan_kw, on_card)
     return rows
 
 

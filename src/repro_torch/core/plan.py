@@ -40,8 +40,11 @@ keeps its lane block of the fused tables and its slice block of the SpMV
 operand on its device, and solves the same right-hand side with replicated
 state vectors; the preconditioner issues one all-gather per fused step and
 the SpMV one per product (``DistributedRoundMajorPreconditioner``,
-``make_sharded_spmv``).  Static validation belongs to a later slice of the
-port.
+``make_sharded_spmv``).
+
+``validate`` (``"off"`` by default) runs the static race detector of
+``repro_torch.analysis`` before the plan is handed out, as the reference
+does; see ``build_plan``.
 """
 from __future__ import annotations
 
@@ -70,8 +73,7 @@ from .iccg import (DIVERGENCE_FACTOR, STAGNATION_WINDOW, BatchedPCGResult,
 from .mesh import axis_group, axis_names
 from .trisolve import (LAYOUTS, DeviceFusedTables,
                        DistributedRoundMajorPreconditioner,
-                       RoundMajorPreconditioner,
-                       build_preconditioner_from_rounds,
+                       RoundMajorPreconditioner, _assemble_preconditioner,
                        build_round_major_preconditioner_from_rounds,
                        shard_fused_tables)
 
@@ -248,17 +250,17 @@ def _occupancy_from_rounds(rounds, drop) -> float:
 
 
 def _check_knobs(layout: str, spmv_format: str, validate: str) -> None:
-    """Unknown layouts and formats raise, as in the reference; so does the
-    reference's option that a later slice of the port adds."""
+    """Unknown layouts, formats and validate modes raise, as in the
+    reference."""
+    # deferred, as in the reference: the analysis package imports core
+    from ..analysis.schedule import check_validate_mode
+    check_validate_mode(validate)
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; expected one of "
                          f"{LAYOUTS}")
     if spmv_format not in SPMV_FORMATS:
         raise ValueError(f"unknown spmv_format {spmv_format!r}; expected "
                          f"one of {SPMV_FORMATS}")
-    if validate != "off":
-        raise ValueError(f"validate={validate!r} is not ported; the port "
-                         "runs validate='off'")
 
 
 def _check_mesh(mesh, mesh_axis: str, layout: str, lane_multiple: int,
@@ -352,6 +354,7 @@ class SolverPlan:
         self.w = w
         self.shift = shift
         self.on_breakdown = on_breakdown
+        self.validate = validate
         # factor-health record, refreshed by every _factor pass
         self.effective_shift = shift
         self.clamped_pivots = 0
@@ -374,7 +377,16 @@ class SolverPlan:
                                         self._sysd.fwd_rounds)
         l_bar = self._factor(self._sysd.a_bar)
         t2 = time.perf_counter()
-        self._build_operators(l_bar)
+        held = self._build_operators(l_bar)
+        if validate != "off":
+            # static race proof BEFORE the plan is handed out: "cheap" is
+            # the O(nnz) round-monotonicity scan, "full" additionally
+            # proves the tables the kernels launch, their segment cuts and
+            # the IC(0) step schedule (raises ScheduleError with the
+            # offending witness)
+            from ..analysis.schedule import assert_plan_valid
+            assert_plan_valid(self, validate, tables=held,
+                              context=f"build_plan(method={method!r})")
         t3 = time.perf_counter()
         self.timings = SetupBreakdown(ordering=t1 - t0, factor=t2 - t1,
                                       pack=t3 - t2, total=t3 - t0,
@@ -428,6 +440,7 @@ class SolverPlan:
         plan.layout, plan.spmv_format = "round_major", "sell"
         plan.method = str(arrays.get("method", "unknown"))
         plan.scheduler = "coloring"
+        plan.validate = "off"
         plan.n, plan.n_padded = int(arrays["n"]), int(arrays["n_padded"])
         plan.n_colors = int(arrays.get("n_colors", 0))
         plan._perm = np.asarray(arrays["perm"])
@@ -481,15 +494,21 @@ class SolverPlan:
             return [self._precond.tables]
         return [self._precond.kernel.fwd, self._precond.kernel.bwd]
 
-    def _build_operators(self, l_bar) -> None:
+    def _build_operators(self, l_bar) -> dict:
         """Pack the factor + the SpMV operand in the plan's layout and
         format, and move them to the device.  The index layout has no
         round-major state map (``_rm`` is None): its vectors are in HBMC
         order, of length ``n_padded``.  Under a mesh the plan keeps this
         rank's lane block of the fused tables and its block of the SpMV
         operand's rows (ELL) or slices (SELL, padded with zero slices to a
-        multiple of the axis size)."""
+        multiple of the axis size).
+
+        Returns what ``analysis.validate_plan`` reads of the build and the
+        plan does not keep: the index layout's host ``StepTables``
+        (``"fwd"``, ``"bwd"``) and a mesh plan's whole fused tables before
+        they were sharded (``"fused"``)."""
         sysd = self._sysd
+        held = {}
         if self.layout == "round_major":
             self._precond, self._rm = \
                 build_round_major_preconditioner_from_rounds(
@@ -498,9 +517,11 @@ class SolverPlan:
                     device=self.device, lane_multiple=self.lane_multiple)
             a_op = sell.permute_round_major(sysd.a_bar, self._rm)
         else:
-            self._precond = build_preconditioner_from_rounds(
-                l_bar, sysd.fwd_rounds, sysd.bwd_rounds, drop_mask=sysd.drop,
-                dtype=self.dtype, device=self.device)
+            held["fwd"], held["bwd"] = sell.pack_factor(
+                l_bar, sysd.fwd_rounds, sysd.bwd_rounds, sysd.drop)
+            self._precond = _assemble_preconditioner(
+                held["fwd"], held["bwd"], l_bar.shape[0], self.dtype,
+                self.device)
             self._rm = None
             a_op = sysd.a_bar
         if self.spmv_format == "sell":
@@ -510,6 +531,7 @@ class SolverPlan:
             cols, vals = sell.pack_ell(a_op)
             n = a_op.shape[0]
         if self.mesh is not None:
+            held["fused"] = self._precond.tables
             self._precond = DistributedRoundMajorPreconditioner(
                 tables=shard_fused_tables(self._precond.tables, self.mesh,
                                           self.mesh_axis),
@@ -518,6 +540,7 @@ class SolverPlan:
             vals, cols = _shard_rows(vals, cols, size, rank,
                                      pad=self.spmv_format == "sell")
         self._set_spmv_operand(vals, cols, n)
+        return held
 
     def _factor(self, a_bar: sp.csr_matrix) -> sp.csr_matrix:
         """Numeric IC(0) sweep under the plan's ``on_breakdown`` policy.
@@ -892,6 +915,20 @@ def build_plan(a: sp.spmatrix, method: str = "hbmc", block_size: int = 32,
     ``scheduler`` picks how the ordered pattern is cut into parallel rounds:
     ``"coloring"`` uses the method's color rounds, ``"levelset"`` the
     dependency levels of the ordered pattern.
+
+    ``validate`` runs the static schedule race detector
+    (``repro_torch.analysis``) at setup, as in the reference: ``"cheap"``
+    is an O(nnz) round-monotonicity scan of the ordering's rounds,
+    ``"full"`` additionally proves the tables the kernels launch (the
+    fused table, each sweep's step tables, a mesh plan's whole tables
+    before they are sharded and the rank's block of them), every segment
+    cut a trisolve kernel launches with (``analysis.check_segments``, the
+    card's own race: lanes of one launch run in no order) and the IC(0)
+    step schedule; ``"deep"`` adds the kernel operand and grid checks and
+    the dtype-flow lint of every path.  A violation raises
+    ``repro_torch.analysis.ScheduleError`` with the offending witness;
+    ``"off"`` (default) skips the proof.  An unknown mode raises
+    ``ValueError``.
 
     ``layout`` picks the preconditioner's coordinates: ``"round_major"``
     (state vectors in execution order, one fused 2S-step sweep per apply,

@@ -30,12 +30,14 @@ def solve_iccg(a: sp.spmatrix, b: np.ndarray, method: str = "hbmc",
                dtype: torch.dtype = torch.float64,
                record_history: bool = False, layout: str = "round_major",
                scheduler: str = "coloring",
-               device: str | torch.device = DEFAULT_DEVICE) -> ICCGReport:
+               device: str | torch.device = DEFAULT_DEVICE,
+               validate: str = "off") -> ICCGReport:
     """Build a ``SolverPlan``, solve once, fold setup into the report's
-    ``setup_seconds``."""
+    ``setup_seconds``.  ``validate`` is ``build_plan``'s."""
     plan = build_plan(a, method=method, block_size=block_size, w=w,
                       shift=shift, spmv_format=spmv_format, dtype=dtype,
-                      layout=layout, scheduler=scheduler, device=device)
+                      layout=layout, scheduler=scheduler, device=device,
+                      validate=validate)
     rep = plan.solve(b, rtol=rtol, maxiter=maxiter,
                      record_history=record_history)
     rep.setup_seconds += plan.timings.total
@@ -50,8 +52,8 @@ def solve_iccg_batched(a: sp.spmatrix, b: np.ndarray, method: str = "hbmc",
                        record_history: bool = False,
                        layout: str = "round_major",
                        scheduler: str = "coloring",
-                       device: str | torch.device = DEFAULT_DEVICE
-                       ) -> BatchedICCGReport:
+                       device: str | torch.device = DEFAULT_DEVICE,
+                       validate: str = "off") -> BatchedICCGReport:
     """Solve A x_j = b_j for all columns of ``b`` ((n, B)) in one PCG loop.
 
     The caller names ``dtype``, so ``b`` is cast to it here (the documented
@@ -66,7 +68,8 @@ def solve_iccg_batched(a: sp.spmatrix, b: np.ndarray, method: str = "hbmc",
                          f"got {b.shape}")
     plan = build_plan(a, method=method, block_size=block_size, w=w,
                       shift=shift, spmv_format=spmv_format, dtype=dtype,
-                      layout=layout, scheduler=scheduler, device=device)
+                      layout=layout, scheduler=scheduler, device=device,
+                      validate=validate)
     rep = plan.solve_batched(b, rtol=rtol, maxiter=maxiter,
                              record_history=record_history)
     rep.setup_seconds += plan.timings.total

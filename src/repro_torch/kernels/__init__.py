@@ -21,10 +21,14 @@ Each wrapper runs its CUDA kernel for a CUDA tensor and its plain version
 (``launch_counts``) and the CUDA launches those calls issued
 (``cuda_launch_counts``).  The trisolve kernels launch once per
 barrier-free segment of their table (``segments.barrier_segments``).
+Every wrapper call, on either device, also adds its operands' bytes
+(``operand_bytes``) and is one opaque node to ``repro_torch.analysis``'s
+dispatch linters (``_trace.kernel_node``).
 
 ``ops`` (imported on its own, since it reads ``repro_torch.core.sell``)
 carries the index layout's tables and its kernel preconditioner.
 """
+from . import _trace
 from . import hbmc_trisolve as _hbmc_trisolve_mod
 from . import sell_spmv as _sell_spmv_mod
 from .config import DEFAULT_DEVICE, resolve_device
@@ -68,6 +72,9 @@ _CUDA_COUNTED = {
     "sell_spmv_block": (_sell_spmv_mod, "block_cuda_launches"),
 }
 
+# wrapper name -> (module, counter of the operand bytes of its calls)
+_BYTES_COUNTED = {name: (_trace, f"{name}_bytes") for name in _COUNTED}
+
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
@@ -85,16 +92,28 @@ def cuda_launch_counts() -> dict[str, int]:
             _CUDA_COUNTED.items()}
 
 
+def operand_bytes() -> dict[str, int]:
+    """Operand bytes per wrapper since the last reset: each tensor argument
+    and the result once per outermost call, on the card and on the CPU
+    (``_trace``); ``sell_spmv_block``'s calls count under its name only."""
+    return {name: getattr(mod, attr) for name, (mod, attr) in
+            _BYTES_COUNTED.items()}
+
+
+def _counters() -> tuple:
+    return (*_COUNTED.values(), *_CUDA_COUNTED.values(),
+            *_BYTES_COUNTED.values())
+
+
 def reset_launch_counts() -> None:
-    """Zero the wrapper-call and the CUDA-launch counters."""
-    for mod, attr in (*_COUNTED.values(), *_CUDA_COUNTED.values()):
+    """Zero the wrapper-call, CUDA-launch and operand-byte counters."""
+    for mod, attr in _counters():
         setattr(mod, attr, 0)
 
 
 def _counter_values() -> dict[tuple, int]:
     """Every counter's value, keyed by (module, attribute)."""
-    return {(mod, attr): getattr(mod, attr) for mod, attr in
-            (*_COUNTED.values(), *_CUDA_COUNTED.values())}
+    return {(mod, attr): getattr(mod, attr) for mod, attr in _counters()}
 
 
 def _add_counter_values(delta: dict[tuple, int], times: int = 1) -> None:

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ._trace import kernel_node
 from .config import runs_plain
 from .ref import (hbmc_trisolve_batched_ref, hbmc_trisolve_fused_batched_ref,
                   hbmc_trisolve_fused_ref, hbmc_trisolve_ref,
@@ -119,6 +120,7 @@ def _segments(segments, cols: torch.Tensor, fused: bool) -> np.ndarray:
     return seg
 
 
+@kernel_node("hbmc_trisolve_fused")
 def hbmc_trisolve_fused(cols: torch.Tensor, vals: torch.Tensor,
                         dinv: torch.Tensor, q: torch.Tensor,
                         segments=None) -> torch.Tensor:
@@ -160,6 +162,7 @@ def hbmc_trisolve_fused(cols: torch.Tensor, vals: torch.Tensor,
     return y
 
 
+@kernel_node("hbmc_trisolve_fused_batched")
 def hbmc_trisolve_fused_batched(cols: torch.Tensor, vals: torch.Tensor,
                                 dinv: torch.Tensor, q: torch.Tensor,
                                 segments=None) -> torch.Tensor:
@@ -184,6 +187,7 @@ def hbmc_trisolve_fused_batched(cols: torch.Tensor, vals: torch.Tensor,
     return y
 
 
+@kernel_node("hbmc_trisolve")
 def hbmc_trisolve(cols: torch.Tensor, vals: torch.Tensor, dinv: torch.Tensor,
                   q: torch.Tensor, segments=None) -> torch.Tensor:
     """One round-major triangular sweep (``sell.to_round_major`` tables).
@@ -214,6 +218,7 @@ def hbmc_trisolve(cols: torch.Tensor, vals: torch.Tensor, dinv: torch.Tensor,
     return y
 
 
+@kernel_node("hbmc_trisolve_batched")
 def hbmc_trisolve_batched(cols: torch.Tensor, vals: torch.Tensor,
                           dinv: torch.Tensor, q: torch.Tensor,
                           segments=None) -> torch.Tensor:
@@ -237,6 +242,7 @@ def hbmc_trisolve_batched(cols: torch.Tensor, vals: torch.Tensor,
     return y
 
 
+@kernel_node("hbmc_trisolve_shard_step")
 def hbmc_trisolve_shard_step(cols: torch.Tensor, vals: torch.Tensor,
                              dinv: torch.Tensor, q: torch.Tensor,
                              y: torch.Tensor, g: int,
@@ -273,6 +279,7 @@ def hbmc_trisolve_shard_step(cols: torch.Tensor, vals: torch.Tensor,
     return y
 
 
+@kernel_node("hbmc_trisolve_shard_step_batched")
 def hbmc_trisolve_shard_step_batched(cols: torch.Tensor, vals: torch.Tensor,
                                      dinv: torch.Tensor, q: torch.Tensor,
                                      y: torch.Tensor, g: int,

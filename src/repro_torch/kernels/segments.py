@@ -30,7 +30,9 @@ The gather positions are normalised as the kernels read them: ``c`` in
 ``S*R`` of the packing) reads nothing.  A step that reads another lane's
 entry of the slice it writes itself can be cut by no barrier (not even one
 launch per step); every packed table is free of it, and such a table
-raises ``ValueError``.
+raises ``analysis.ScheduleError`` with the step as its witness.
+``segment_ties`` states the rule once: ``barrier_segments`` cuts by it,
+and ``analysis.schedule.check_segments`` proves any given cut against it.
 
 Each tie needs a segment start in ``(min, max]`` of its two steps; the
 fewest starts covering all ties are placed greedily at the right ends of
@@ -53,6 +55,52 @@ def step_dest(n_steps: int, fused: bool) -> np.ndarray:
     return np.where(g < s_, g, 2 * s_ - 1 - g)
 
 
+def segment_ties(cols: np.ndarray, fused: bool
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """Every tie of a step table: the pairs of steps that must lie in
+    different launches, by the ownership contract of the module docstring.
+
+    Args:
+      cols: (G, R, K) gather positions of a round-major table (as for
+        ``barrier_segments``).
+      fused: whether ``cols`` is a fused table (G = 2S) or one sweep.
+
+    Returns:
+      (reader, writer): int64 arrays, one entry per tie: step ``reader``
+      reads another lane's entry of a slice that step ``writer`` writes.
+      Ordered by reader, then slice, first writers before second writers
+      (a fused slice has two).  ``reader == writer`` marks a step that
+      reads another lane's entry of the slice it writes itself, which no
+      launch boundary can order.  This is the one statement of the rule:
+      ``barrier_segments`` places its starts by it and
+      ``analysis.schedule.check_segments`` checks a cut against it.
+    """
+    cols = np.asarray(cols)
+    if cols.ndim != 3:
+        raise ValueError(f"cols must be (G, R, K), got {cols.shape}")
+    n_steps, r_, _ = cols.shape
+    if fused and n_steps % 2:
+        raise ValueError(f"a fused table has 2S steps, got {n_steps}")
+    if n_steps == 0:
+        none = np.zeros(0, dtype=np.int64)
+        return none, none
+    n_slices = n_steps // 2 if fused else n_steps
+    m = n_slices * r_
+    c = cols.astype(np.int64)
+    c = np.where(c < 0, c + m, c)
+    lane = np.arange(r_, dtype=np.int64)[None, :, None]
+    other = (c >= 0) & (c < m) & (c % r_ != lane)
+    step = np.broadcast_to(np.arange(n_steps, dtype=np.int64)[:, None, None],
+                           c.shape)
+    # (step, slice) pairs with a read of another lane's entry
+    key = np.unique(step[other] * n_slices + c[other] // r_)
+    g, slc = key // n_slices, key % n_slices
+    # the steps that write each slice: g itself for a sweep, g and 2S-1-g
+    # for the fused table
+    writers = [slc] if not fused else [slc, 2 * n_slices - 1 - slc]
+    return np.tile(g, len(writers)), np.concatenate(writers)
+
+
 def barrier_segments(cols: np.ndarray, fused: bool) -> np.ndarray:
     """Start step of each barrier-free segment of a step table.
 
@@ -68,43 +116,27 @@ def barrier_segments(cols: np.ndarray, fused: bool) -> np.ndarray:
       Segment i runs steps ``[starts[i], starts[i+1])``, the last one up to
       G.  Running each segment as one launch, with the ownership contract
       of the module docstring, gives the step-major result bit for bit.
+
+    Raises:
+      ``analysis.ScheduleError`` (a ``ValueError``) with an
+      ``"intra-step-read"`` witness for a step that reads another lane's
+      entry of the slice it writes.
     """
     cols = np.asarray(cols)
-    if cols.ndim != 3:
-        raise ValueError(f"cols must be (G, R, K), got {cols.shape}")
-    n_steps, r_, _ = cols.shape
-    if fused and n_steps % 2:
-        raise ValueError(f"a fused table has 2S steps, got {n_steps}")
-    if n_steps == 0:
+    reader, writer = segment_ties(cols, fused)
+    if np.any(reader == writer):
+        # deferred: the analysis package imports this module
+        from ..analysis.schedule import ScheduleError, check_segments
+        raise ScheduleError(check_segments(cols, [0], fused),
+                            context="barrier_segments")
+    if cols.shape[0] == 0:
         return np.zeros(1, dtype=np.int32)
-    n_slices = n_steps // 2 if fused else n_steps
-    m = n_slices * r_
-    c = cols.astype(np.int64)
-    c = np.where(c < 0, c + m, c)
-    lane = np.arange(r_, dtype=np.int64)[None, :, None]
-    other = (c >= 0) & (c < m) & (c % r_ != lane)
-    step = np.broadcast_to(np.arange(n_steps, dtype=np.int64)[:, None, None],
-                           c.shape)
-    # (step, slice) pairs with a read of another lane's entry
-    key = np.unique(step[other] * n_slices + c[other] // r_)
-    g, slc = key // n_slices, key % n_slices
-    dest = step_dest(n_steps, fused)
-    if np.any(dest[g] == slc):
-        bad = int(g[np.flatnonzero(dest[g] == slc)[0]])
-        raise ValueError(f"step {bad} reads another lane's entry of the "
-                         f"slice it writes; no launch boundary can order "
-                         f"that")
-    # the steps that write each slice: g itself for a sweep, g and 2S-1-g
-    # for the fused table
-    writers = [slc] if not fused else [slc, 2 * n_slices - 1 - slc]
-    lo = np.concatenate([np.minimum(g, w) for w in writers])
-    hi = np.concatenate([np.maximum(g, w) for w in writers])
-    need = np.full(n_steps, -1, dtype=np.int64)   # max lo of ties ending here
-    np.maximum.at(need, hi, lo)
+    lo, hi = np.minimum(reader, writer), np.maximum(reader, writer)
+    need = np.full(cols.shape[0], -1, dtype=np.int64)  # max lo of ties
+    np.maximum.at(need, hi, lo)                        # ending at each step
     starts, last = [0], 0
     for h in np.flatnonzero(need >= 0):
         if last <= need[h]:           # no start in (need[h], h] yet
             starts.append(int(h))
             last = int(h)
     return np.asarray(starts, dtype=np.int32)
-

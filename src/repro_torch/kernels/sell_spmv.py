@@ -27,6 +27,7 @@ import dataclasses
 import torch
 
 from . import _build
+from ._trace import kernel_node
 from .config import runs_plain
 from .ref import sell_spmv_batched_ref, sell_spmv_ref
 
@@ -123,6 +124,7 @@ def _run(entry: str, vals, cols, x, *shape) -> tuple[torch.Tensor, int]:
     return y, n
 
 
+@kernel_node("sell_spmv")
 def sell_spmv(vals: torch.Tensor, cols: torch.Tensor,
               x: torch.Tensor) -> torch.Tensor:
     """y = A x with A in SELL-w layout.
@@ -146,6 +148,7 @@ def sell_spmv(vals: torch.Tensor, cols: torch.Tensor,
     return y
 
 
+@kernel_node("sell_spmv_batched")
 def sell_spmv_batched(vals: torch.Tensor, cols: torch.Tensor,
                       x: torch.Tensor) -> torch.Tensor:
     """Y = A X for B column vectors at once.  x: (n_pad, B).
@@ -171,6 +174,7 @@ def sell_spmv_batched(vals: torch.Tensor, cols: torch.Tensor,
     return y
 
 
+@kernel_node("sell_spmv_block")
 def sell_spmv_block(vals: torch.Tensor, cols: torch.Tensor,
                     x: torch.Tensor) -> torch.Tensor:
     """Per-device block SpMV of a mesh (``core.iccg.make_sharded_spmv``).

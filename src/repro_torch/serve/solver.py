@@ -54,6 +54,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..analysis.schedule import assert_plan_valid, check_validate_mode
 from ..core.iccg import (DIVERGENCE_FACTOR, STAGNATION_WINDOW,
                          UNHEALTHY_STATUSES, SlabState, status_name)
 from ..core.ic0 import FactorBreakdownError
@@ -177,6 +178,7 @@ class CacheStats:
     refactors: int = 0
     evictions: int = 0
     pinned_overflow: int = 0   # capacity exceeded but every entry pinned
+    admission_seconds: float = 0.0   # spent validating misses (validate=)
 
     @property
     def requests(self) -> int:
@@ -215,9 +217,15 @@ class PlanCache:
     pinned entries are never evicted and never refactored out from under
     their slabs.
 
-    ``validate`` gates cache admission in the reference; the port admits
-    unconditionally (``"off"``) until its analysis slice brings the
-    schedule audits, and refuses the other modes.
+    ``validate`` gates cache admission: on a miss the freshly built plan
+    is run through the static schedule race detector
+    (``repro_torch.analysis.assert_plan_valid``) at that depth before it
+    is cached or returned -- a plan with a provable schedule race (a
+    segment cut that would race on the card included) raises
+    ``ScheduleError`` and never enters the cache, so no later hit can
+    dispatch it.  ``"deep"`` extends admission to the kernel checks and
+    the dtype-flow lint of every path.  ``"off"`` (default) admits
+    unconditionally.
     """
 
     def __init__(self, capacity: int = 8,
@@ -225,10 +233,7 @@ class PlanCache:
                  validate: str = "off"):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
-        if validate != "off":
-            raise ValueError(f"validate={validate!r} is not ported (cache "
-                             "admission audits come with the port's "
-                             "analysis slice); the port runs validate='off'")
+        check_validate_mode(validate)
         self.capacity = capacity
         self._build = build
         self.validate = validate
@@ -275,6 +280,16 @@ class PlanCache:
             return entry.plan, "refactor"
         knobs.pop("mesh", None)             # validated None by the key
         plan = self._build(a, **knobs)
+        if self.validate != "off":
+            # admission control: prove the schedule race-free before the
+            # plan can be cached (and re-served on every later hit)
+            t0 = time.perf_counter()
+            try:
+                assert_plan_valid(plan, self.validate,
+                                  context=f"PlanCache admission "
+                                          f"{key.pattern[:12]}")
+            finally:
+                self.stats.admission_seconds += time.perf_counter() - t0
         self._entries[key] = _CacheEntry(plan=plan, values_fp=vfp,
                                          pins=int(pin))
         self.stats.misses += 1
@@ -493,7 +508,9 @@ class SolverService:
     requests fail fast without re-attempting the build.  ``max_queue``
     bounds admission (``QueueFullError``), ``timeout=``/``default_timeout``
     set per-request deadlines on the service clock, and ``cancel`` revokes
-    queued or in-flight requests immediately.
+    queued or in-flight requests immediately.  ``validate`` is the
+    admission depth of the ``PlanCache`` the service makes (a given
+    ``cache`` keeps its own; a different mode there raises).
     """
 
     def __init__(self, cache: PlanCache | None = None, *,
@@ -504,14 +521,20 @@ class SolverService:
                  default_timeout: float | None = None,
                  divergence_factor: float | None = DIVERGENCE_FACTOR,
                  stagnation_window: int | None = STAGNATION_WINDOW,
-                 **plan_knobs):
+                 validate: str = "off", **plan_knobs):
         if slab_width < 1:
             raise ValueError(f"slab_width must be >= 1, got {slab_width}")
         if quantum < 1:
             raise ValueError(f"quantum must be >= 1, got {quantum}")
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
-        self.cache = cache if cache is not None else PlanCache()
+        if cache is None:
+            cache = PlanCache(validate=validate)
+        elif validate not in ("off", cache.validate):
+            raise ValueError(f"validate={validate!r} disagrees with the "
+                             f"given cache's {cache.validate!r}; build the "
+                             f"PlanCache with it")
+        self.cache = cache
         self.slab_width = slab_width
         self.quantum = quantum
         self.rtol = rtol

@@ -66,8 +66,8 @@ def shard_apply(t, q, blocks: int, fill: float = float("nan")):
 
 
 #: what one spawned run does: the solves of one method, a refactor round
-#: trip, or the rest
-PARTS = METHODS + ("refactor", "iccg")
+#: trip, the static analysis of a mesh plan, or the rest
+PARTS = METHODS + ("refactor", "iccg", "analysis")
 
 
 def run_rank(rank: int, world: int, store: str, out_dir: str,
@@ -89,6 +89,7 @@ def run_rank(rank: int, world: int, store: str, out_dir: str,
         mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("data",))
         got = (_solves(mesh, part) if part in METHODS else
                _refactor(mesh) if part == "refactor" else
+               _analysis(mesh, world) if part == "analysis" else
                _iccg(mesh, world))
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **got)
     finally:
@@ -166,3 +167,30 @@ def _iccg(mesh, world: int) -> dict:
     rep = distributed_iccg(a, b, mesh, rtol=RTOL, **PLAN)
     got.update(x=rep.x, n_padded=rep.n_padded)
     return got
+
+
+def _analysis(mesh, world: int) -> dict:
+    """``build_plan(validate="full")`` on a mesh plan (the whole tables
+    proven before they are sharded, the rank's block checked against them),
+    the collective structure and kernel checks of the plan, and the
+    witness of a block that is another rank's."""
+    import torch.distributed as dist
+
+    from repro_torch.analysis import (check_plan_collectives,
+                                      check_plan_kernels, check_shard_block)
+    from repro_torch.core import DeviceFusedTables, build_plan
+    a, _, _ = system()
+    plan = build_plan(a, method="hbmc", mesh=mesh, validate="full", **PLAN)
+    found = check_plan_collectives(plan) + check_plan_kernels(plan)
+    whole = build_plan(a, method="hbmc", lane_multiple=world, device="cpu",
+                       **PLAN)._precond.tables
+    r_loc = whole.lanes // world
+    nxt = (dist.get_rank() + 1) % world
+    lanes = slice(nxt * r_loc, (nxt + 1) * r_loc)
+    other = DeviceFusedTables(cols=whole.cols[:, lanes].contiguous(),
+                              vals=whole.vals[:, lanes].contiguous(),
+                              dinv=whole.dinv[:, lanes].contiguous())
+    wrong = check_shard_block(whole, other, mesh, "data")
+    return dict(found=np.array([str(v) for v in found], dtype=str),
+                wrong=np.array([v.kind for v in wrong], dtype=str),
+                n_rounds=plan.n_rounds)

@@ -829,3 +829,101 @@ def test_one_rank_nccl_mesh_plan_bitwise_single_device(nccl_mesh):
     np.testing.assert_array_equal(rs.x, want_s.x)
     warm = plan.solve(b)
     np.testing.assert_array_equal(warm.x, rep.x)
+
+
+# ---------------------------------------------------------------------------
+# The analysis package on the card: validation, linters, recorded bytes.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("layout", ["round_major", "index"])
+def test_validate_on_a_card_plan(cuda, layout):
+    """Every mode on a plan whose tables live on the card, the kernel
+    checks at B = 1 and 8 and the collective structure (none)."""
+    from repro_torch.analysis import (check_plan_collectives,
+                                      check_plan_kernels, validate_plan)
+    a, _ = paper_problem("g3_circuit", "tiny")
+    plan = build_plan(a, method="hbmc", layout=layout, validate="deep",
+                      device="cuda")
+    for mode in ("off", "cheap", "full", "deep"):
+        assert validate_plan(plan, mode) == [], mode
+    assert check_plan_kernels(plan, 8) == []
+    assert check_plan_collectives(plan) == []
+    rep = plan.solve(np.ones(a.shape[0]))
+    assert rep.result.status == "CONVERGED"
+
+
+def test_linters_see_the_kernels_as_opaque_nodes_on_the_card(cuda):
+    """A ctypes launch never reaches the dispatcher: the wrappers' marks
+    make it one node, so the card's record equals the CPU's."""
+    from repro_torch.analysis import (FULL_PALLAS_ITERATION, PALLAS_SPMV,
+                                      PRECONDITIONED_ITERATION,
+                                      ROUND_MAJOR_APPLY,
+                                      check_plan_dtype_flow, lint,
+                                      primitive_counts)
+    from repro_torch.analysis.dtype_flow import nonzero_rhs
+    from repro_torch.core import pcg_iteration
+    a = laplace_2d(40, 36)
+    recs = {}
+    for device in ("cuda", "cpu"):
+        plan = build_plan(a, block_size=8, w=4, device=device)
+        q = nonzero_rhs(plan)
+        plan._precond(q)        # the segments, computed outside the record
+        recs[device] = primitive_counts(plan._precond, q)
+        assert lint(plan._precond, q, budget=ROUND_MAJOR_APPLY) == []
+        assert lint(plan._spmv, q, budget=PALLAS_SPMV) == []
+        step = pcg_iteration(plan._spmv, plan._precond)
+        args = (torch.zeros_like(q), q, q.clone(),
+                torch.ones((), dtype=plan.dtype, device=plan.device))
+        for budget in (FULL_PALLAS_ITERATION, PRECONDITIONED_ITERATION):
+            assert lint(step, *args, budget=budget,
+                        steps=2 * plan.n_rounds) == []
+        assert check_plan_dtype_flow(plan) == []
+
+        def leaky(v, pre=plan._precond):
+            z = pre(v)
+            z[torch.tensor([0], device=v.device)] = 0.0
+            return z
+
+        found = lint(leaky, q, budget=ROUND_MAJOR_APPLY)
+        assert len(found) == 1 and "aten.index_put_" in found[0]
+    assert recs["cuda"]["kernel.hbmc_trisolve_fused"] == 1
+    assert recs["cuda"] == recs["cpu"]
+
+
+def test_wrappers_record_operand_bytes_on_the_card(cuda):
+    """Each launch adds its bound's bytes; a replayed graph adds its
+    block's, as it adds its launches."""
+    from repro_torch.analysis import (check_plan_traffic, spmv_bytes,
+                                      trisolve_bytes)
+    a = laplace_2d(40, 36)
+    plan = build_plan(a, block_size=8, w=4, device="cuda")
+    t = plan._precond.tables
+    q = torch.ones((t.n_steps, t.lanes), dtype=plan.dtype, device="cuda")
+    x = torch.ones(plan.slab_m, dtype=plan.dtype, device="cuda")
+    per_apply = trisolve_bytes(t, q)
+    per_spmv = spmv_bytes(plan._spmv_vals, plan._spmv_cols, x)
+    _reset_counts()
+    plan._precond(q.reshape(-1))
+    plan._spmv(x)
+    seen = kernels.operand_bytes()
+    assert seen["hbmc_trisolve_fused"] == per_apply
+    assert seen["sell_spmv"] == per_spmv
+    assert check_plan_traffic(plan) == []
+    _reset_counts()
+    plan.solve(np.ones(a.shape[0]))
+    counts, seen = kernels.launch_counts(), kernels.operand_bytes()
+    assert seen["hbmc_trisolve_fused"] == \
+        counts["hbmc_trisolve_fused"] * per_apply
+    assert seen["sell_spmv"] == counts["sell_spmv"] * per_spmv
+
+
+def test_nccl_mesh_plan_validates_and_proves_collectives(nccl_mesh):
+    """``validate="full"`` proves a one-rank NCCL mesh plan's whole tables
+    and its block; its apply issues 2S all-gathers, its SpMV one, its
+    solve no all-reduce (the c10d ops of the dispatch stream included)."""
+    from repro_torch.analysis import (check_plan_collectives,
+                                      check_plan_kernels)
+    plan = build_plan(laplace_2d(30, 27), mesh=nccl_mesh, block_size=8, w=4,
+                      lane_multiple=4, validate="full")
+    assert check_plan_collectives(plan) == []
+    assert check_plan_kernels(plan) == check_plan_kernels(plan, 8) == []

@@ -528,3 +528,15 @@ def test_distributed_iccg_returns_caller_ordering(spawned, world):
         assert res["x"].shape == (a.shape[0],)
         assert np.linalg.norm(a @ res["x"] - b) / np.linalg.norm(b) < 1e-8
         np.testing.assert_array_equal(res["x"], got[0]["x"])
+
+
+def test_mesh_ranks_validate_and_prove_collectives(spawned):
+    """Two ranks: ``build_plan(mesh=, validate="full")`` proves the whole
+    tables and each rank's block; every rank's apply issues 2S all-gathers,
+    its SpMV one, its solve no all-reduce, and its kernel checks are clean;
+    a block that is the next rank's is witnessed as a shard mismatch."""
+    got = spawned(2, "analysis")
+    for res in got:
+        assert res["found"].tolist() == []
+        assert res["wrong"].tolist() == ["shard-mismatch"]
+        assert int(res["n_rounds"]) == int(got[0]["n_rounds"])

@@ -280,12 +280,14 @@ def test_resolve_device_rejects_other_devices():
 
 
 @pytest.mark.parametrize("bad,err,match",
-                         [(dict(validate="cheap"), ValueError, "not ported"),
+                         [(dict(validate="banana"), ValueError, "validate"),
                           (dict(mesh=object()), TypeError, "DeviceMesh")],
                          ids=["validate", "mesh"])
 def test_unported_options_raise(bad, err, match):
-    """``validate`` is not ported; ``mesh=`` is (tests/test_torch_mesh.py)
-    and refuses anything but a ``DeviceMesh``."""
+    """``validate`` and ``mesh=`` are ported (tests/test_torch_analysis.py,
+    tests/test_torch_mesh.py); an unknown validate mode raises naming the
+    knob, as in the reference, and ``mesh=`` refuses anything but a
+    ``DeviceMesh``."""
     with pytest.raises(err, match=match):
         build_plan(laplace_2d(6, 6), block_size=BS, w=W, device="cpu", **bad)
 

@@ -447,8 +447,11 @@ def test_plan_key_knobs_follow_the_port():
     plan8, _ = PlanCache().get(a, lane_multiple=8, **KNOBS)
     assert plan8.lane_multiple == 8
     assert plan8._precond.tables.lanes % 8 == 0
-    with pytest.raises(ValueError, match="not ported.*analysis slice"):
-        PlanCache(validate="cheap")
+    # validate is the reference's admission knob (tests/test_torch_analysis
+    # .py holds its audits); an unknown mode is refused by name
+    assert PlanCache(validate="cheap").validate == "cheap"
+    with pytest.raises(ValueError, match="validate"):
+        PlanCache(validate="banana")
     with pytest.raises(TypeError, match="unknown plan knobs"):
         SolverService(clock=VirtualClock(), backend="xla", **KNOBS).submit(
             a, np.ones(a.shape[0]))
