@@ -107,7 +107,14 @@ its last line:
    steps' and ``sell_spmv_block``'s times against their plain versions
    and bounds; before the group is destroyed, phase 3g's mesh part:
    ``analysis.check_plan_collectives`` (2S all-gathers an apply, one a
-   SpMV, no all-reduce in a solve) and the shard step's kernel checks.
+   SpMV, no all-reduce in a solve), the shard step's kernel checks and
+   ``validate_plan(mesh plan, "full")`` on the built plan (its lane block
+   gathered over the mesh axis; timed, no finding); then the index
+   layout's mesh step, ``partition.lower_solver_step`` on the index tables
+   of ``laplace_2d(32, 32)`` (HBMC block 8, w 4, ELL): one PCG iteration
+   with both sweeps, captured as a CUDA graph after an eager first call,
+   five replays bitwise the eager iteration, 2S sweep all-gathers and one
+   SpMV all-gather per replay, replayed and eager ms per iteration.
 3g. Analysis (``repro_torch.analysis``), run after 3f, on the 1M matrix:
    ``validate_plan`` in the modes cheap, full and deep on a plan built with
    ``validate="off"``, each timed ("full" includes ``check_segments`` on
@@ -125,6 +132,17 @@ its last line:
    ``python -m repro_torch.analysis --problems laplace2d,thermal2 --scale
    tiny --validate deep --dtype-flow --contracts --traffic`` in a
    subprocess, which must exit 0.  Every finding list must be empty.
+5. Examples, run last: each twin of the five solver examples
+   (``repro_torch.examples``: quickstart, timestepping, serve_solver,
+   rnn_as_trisolve, and iccg_fem at ``--scale small``) on the CPU and on
+   the card; their counts (iterations, colors, rounds, occupancy, cache
+   statistics, statuses) must be equal, and the card's run must launch the
+   twin's kernels.  Then ``iccg_fem --scale bench`` on each of the five
+   paper datasets (32,000-123,904 unknowns; MC, BMC, HBMC with ELL and
+   HBMC with SELL: 20 plans): every row CONVERGED with true relres < 1e-6
+   on the host, its iterations, setup, cold solve and warm solve (a
+   second solve of the row's plan, bitwise the first) beside the card's
+   name and power limit, and whether BMC and HBMC took equal counts.
 
 Its last lines: one JSON object with a row per kernel (``launches`` are
 wrapper calls on the main path, ``cuda_launches`` the CUDA launches they
@@ -1435,6 +1453,7 @@ def mesh_phase(a, plan_kw: dict, b, b8, iterations, on_card: bool,
             profile_solve(plan, b, b8, tag="mesh ")
             rows = _mesh_kernel_times(plan, launched, reps)
             mesh_analysis(plan)
+            mesh_solver_step(mesh, dev_type, reps)
         finally:
             dist.destroy_process_group()
     log(f"process group destroyed: initialized={dist.is_initialized()}")
@@ -1446,7 +1465,8 @@ def mesh_analysis(plan) -> None:
     plan (2S all-gathers an apply, one a SpMV, no all-reduce in a solve)
     and its kernel checks (the shard step on the rank's lane block)."""
     from repro_torch.analysis import (check_plan_collectives,
-                                      check_plan_kernels, plan_launches)
+                                      check_plan_kernels, plan_launches,
+                                      validate_plan)
     t0 = time.perf_counter()
     found = check_plan_collectives(plan)
     found += check_plan_kernels(plan) + check_plan_kernels(plan, BATCH)
@@ -1455,6 +1475,74 @@ def mesh_analysis(plan) -> None:
         f"launches {plan_launches(plan)}")
     if found:
         raise AssertionError(f"mesh plan analysis: {found}")
+    # the built mesh plan keeps its lane block only: "full" gathers the
+    # whole tables over the mesh axis and proves them
+    t0 = time.perf_counter()
+    found = validate_plan(plan, "full")
+    log(f"3f validate_plan(built mesh plan, 'full') "
+        f"{time.perf_counter() - t0:.3f} s: {[str(v) for v in found]}")
+    if found:
+        raise AssertionError(f"mesh plan validation: {found}")
+
+
+def mesh_solver_step(mesh, dev_type: str, reps: int) -> None:
+    """Phase 3f: ``partition.lower_solver_step`` on the index tables of a
+    small plan (``laplace_2d(32, 32)``, HBMC block 8, w 4, ELL: the
+    reference's ``test_solver_step_lowers_on_mesh`` system).  Its first
+    call runs eagerly and captures the iteration; its replays must be
+    bitwise the eager iteration, five iterations in a row, each replay
+    counting its 2S sweep all-gathers and one SpMV all-gather.  Prints the
+    counts and the replayed and eager ms per iteration."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (DeviceTables, backward_solve,
+                                  block_multicolor_ordering, forward_solve,
+                                  hbmc_from_bmc, ic0, pack_factor_hbmc,
+                                  pad_system_hbmc)
+    from repro_torch.core import mesh as mesh_mod
+    from repro_torch.core.matrices import laplace_2d
+    from repro_torch.core.partition import lower_solver_step
+    from repro_torch.core.sell import pack_ell
+    dev = torch.device(dev_type)
+    a = laplace_2d(32, 32)
+    hb = hbmc_from_bmc(block_multicolor_ordering(a, 8), 4)
+    a_hb, _ = pad_system_hbmc(a, None, hb)
+    fwd_h, bwd_h = pack_factor_hbmc(ic0(a_hb), hb)
+    fwd, bwd = (DeviceTables.from_host(t, device=dev) for t in (fwd_h,
+                                                                 bwd_h))
+    cols, vals = (torch.tensor(v, device=dev) for v in pack_ell(a_hb))
+    step = lower_solver_step(fwd, bwd, cols, vals, mesh)
+    r = torch.tensor(np.random.default_rng(5).normal(size=a_hb.shape[0]),
+                     device=dev)
+    z = backward_solve(bwd, forward_solve(fwd, r))
+    state = (torch.zeros_like(r), r, z, torch.dot(r, z))
+    # the first call runs eagerly and captures; the next five replay
+    for i in range(6):
+        want = step.eager(*state)
+        mesh_mod.reset_gather_counts()
+        got = step.step(*state)
+        gathers = mesh_mod.gather_counts()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"lower_solver_step: call {i} is not "
+                                 f"bitwise the eager iteration")
+        state = want
+    want_gathers = {"trisolve": step.sweep_steps, "spmv": 1}
+    captured = step.graph is not None
+    if gathers != want_gathers or captured != (dev.type == "cuda"):
+        raise AssertionError(f"lower_solver_step: graph {captured}, "
+                             f"all-gathers per replay {gathers}, expected "
+                             f"{want_gathers}")
+    replay_ms = time_ms(lambda: step.step(*state), reps, dev)
+    eager_ms = time_ms(lambda: step.eager(*state), reps, dev)
+    log(f"3f lower_solver_step on laplace_2d(32, 32) index tables "
+        f"{tuple(fwd.cols.shape)} / {tuple(bwd.cols.shape)}, ELL "
+        f"{tuple(cols.shape)}: sweep steps per apply {step.sweep_steps}, "
+        f"all-gathers per iteration {step.gathers_per_iteration} (a "
+        f"replay counted {gathers}), graph: {str(captured).lower()}; five "
+        f"replays bitwise the eager iteration; ms per iteration replayed "
+        f"{replay_ms:.4f}, eager {eager_ms:.4f}")
+
 
 
 def _mesh_solves(plan, ref, a, b, b8, iterations, on_card: bool,
@@ -1700,6 +1788,129 @@ def graph_ms(fn, reps: int, device) -> float:
     with torch.cuda.graph(graph):
         fn()
     return time_ms(graph.replay, reps, device)
+
+
+#: phase 5: each twin of a solver example, its arguments, and the kernels
+#: its run on the card must launch
+EXAMPLES = (
+    ("quickstart", (), ("hbmc_trisolve_fused", "sell_spmv",
+                        "hbmc_trisolve_fused_batched", "sell_spmv_batched")),
+    ("timestepping", (), ("hbmc_trisolve_fused", "sell_spmv")),
+    ("serve_solver", (), ("hbmc_trisolve_fused_batched",
+                          "sell_spmv_batched")),
+    ("rnn_as_trisolve", (), ()),
+    ("iccg_fem", ("--scale", "small"), ("hbmc_trisolve_fused", "sell_spmv")),
+)
+
+
+def example_counts(name: str, got: dict):
+    """What must not depend on the device in a twin's result: iteration
+    counts, colors, rounds, occupancy, statuses, cache statistics."""
+    if name == "quickstart":
+        return ([(got[m]["iterations"], got[m]["n_colors"],
+                  got[m]["n_rounds"], got[m]["lane_occupancy"])
+                 for m in ("mc", "bmc", "hbmc")], got["plain"]["iterations"],
+                got["batched"]["iterations"].tolist(),
+                got["batched"]["n_steps"])
+    if name == "timestepping":
+        return got["iterations"]
+    if name == "serve_solver":
+        return got["steps"], got["hits"], got["misses"], got["refactors"]
+    if name == "rnn_as_trisolve":
+        return got["err_hbmc"] < 1e-12, got["err_scan"] < 1e-12
+    return [(r["solver"], r["iterations"], r["status"]) for r in got["rows"]]
+
+
+def examples_phase(device: str, bench_scale: str) -> None:
+    """Phase 5: the twins of the solver examples (``repro_torch.examples``).
+    Each runs on the CPU (its output discarded) and on ``device``; the two
+    runs' counts must be equal and the card's run must launch the twin's
+    kernels.  Then ``iccg_fem --scale bench_scale`` for each paper dataset:
+    every row CONVERGED with true relres < 1e-6 on the host; each row's
+    ``solve_iccg`` also solves a second time on the same plan (the warm
+    solve, bitwise the first), so a row has its cold and warm seconds."""
+    import contextlib
+    import importlib
+    import io
+
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.core import (PAPER_PROBLEMS, build_plan,
+                                  paper_problem)
+    twins = {name: importlib.import_module(f"repro_torch.examples.{name}")
+             for name, _, _ in EXAMPLES}
+    for name, argv, used in EXAMPLES:
+        with contextlib.redirect_stdout(io.StringIO()):
+            cpu = twins[name].main(["--device", "cpu", *argv])
+        log(f"-- 5. {name} {' '.join(argv)} on {device}")
+        reset_counts()
+        t0 = time.perf_counter()
+        got = twins[name].main(["--device", device, *argv])
+        secs = time.perf_counter() - t0
+        launched = kernels.launch_counts()
+        want, have = example_counts(name, cpu), example_counts(name, got)
+        log(f"5. {name}: {secs:.3f} s on {device}; counts {have} (CPU: "
+            f"{'equal' if have == want else want}); launches "
+            f"{ {k: v for k, v in launched.items() if v} }")
+        if have != want:
+            raise AssertionError(f"{name}: counts on {device} {have}, on "
+                                 f"the CPU {want}")
+        if device == "cuda" and not all(launched[k] for k in used):
+            raise AssertionError(f"{name}: launched {launched}, expected "
+                                 f"each of {used}")
+
+    fem = twins["iccg_fem"]
+    real_solve = fem.solve_iccg
+    warm = []
+
+    def solve_twice(a, b, rtol, **knobs):
+        plan = build_plan(a, **knobs)
+        rep = plan.solve(b, rtol=rtol)
+        rep.setup_seconds += plan.timings.total
+        again = plan.solve(b, rtol=rtol)
+        if again.result.iterations != rep.result.iterations or \
+                not np.array_equal(again.x, rep.x):
+            raise AssertionError("a warm solve is not the cold one")
+        warm.append(again.solve_seconds)
+        return rep
+
+    card = card_line() if device == "cuda" else "CPU"
+    fem.solve_iccg = solve_twice
+    try:
+        for ds in PAPER_PROBLEMS:
+            warm.clear()
+            reset_counts()
+            got = fem.main(["--device", device, "--scale", bench_scale,
+                            "--dataset", ds])
+            launched = kernels.launch_counts()
+            a, _ = paper_problem(ds, scale=bench_scale)
+            b = np.random.default_rng(0).normal(size=a.shape[0])
+            its = {}
+            for row, warm_s in zip(got["rows"], warm, strict=True):
+                relres = float(np.linalg.norm(b - a @ row["x"])
+                               / np.linalg.norm(b))
+                its[row["solver"]] = row["iterations"]
+                log(f"5. iccg_fem {ds} {bench_scale} n={a.shape[0]} "
+                    f"{row['solver']}: {row['status']}, {row['iterations']} "
+                    f"iterations, setup {row['setup_s']:.3f} s, solve "
+                    f"{row['solve_s']:.4f} s cold, {warm_s * 1e3:.3f} ms "
+                    f"warm ({warm_s * 1e3 / max(row['iterations'], 1):.4f} "
+                    f"ms per iteration), true relres {relres:.3e} [{card}]")
+                if row["status"] != "CONVERGED" or not relres < 1e-6:
+                    raise AssertionError(f"iccg_fem {ds} {row['solver']}: "
+                                         f"{row['status']}, true relres "
+                                         f"{relres:.3e}")
+            same = its["bmc/ell"] == its["hbmc/ell"]
+            log(f"5. iccg_fem {ds}: bmc/ell {its['bmc/ell']} and hbmc/ell "
+                f"{its['hbmc/ell']} iterations ("
+                f"{'equal' if same else 'not equal'}); launches "
+                f"{ {k: v for k, v in launched.items() if v} }")
+            if device == "cuda" and not (launched["hbmc_trisolve_fused"]
+                                         and launched["sell_spmv"]):
+                raise AssertionError(f"iccg_fem {ds}: launched {launched}")
+    finally:
+        fem.solve_iccg = real_solve
 
 
 def kernel_row(name, launches, cuda_launches, err, ms, plain_ms, bnd, by,
@@ -2188,6 +2399,14 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
         f"traffic, linters, a doctored cut, admission and the CLI, same "
         f"matrix (the mesh part ran in 3f)")
     analysis_phase(a_main, plan_kw, on_card)
+
+    # -- 5. examples ----------------------------------------------------------
+    log(f"== 5. examples: the twins of the five solver examples on "
+        f"{device} against the CPU, then iccg_fem --scale {scale} on each "
+        f"paper dataset")
+    t0 = time.perf_counter()
+    examples_phase(device, scale)
+    log(f"phase 5: {time.perf_counter() - t0:.1f} s")
     return rows
 
 

@@ -620,19 +620,40 @@ def _segment_check(t, cols: np.ndarray, fused: bool,
     return check_segments(cols, t.segments, fused, where=where)
 
 
+def _gather_whole_tables(plan):
+    """The whole fused tables of a built mesh plan, which keeps only its
+    lane block: every rank's block all-gathered over the mesh axis (SPMD:
+    every rank validates, as every rank builds).  Raises ``ValueError``
+    when the gather cannot run."""
+    import torch.distributed as dist
+
+    from ..core.mesh import gather_lanes
+    from ..core.trisolve import DeviceFusedTables
+    if not dist.is_initialized():
+        raise ValueError(
+            "a mesh plan keeps only its lane block of the fused tables, and "
+            "its process group is gone: the whole tables cannot be gathered "
+            "to validate it; validate while the group lives, or build it "
+            "with validate=")
+    t = plan._precond.tables
+    return DeviceFusedTables(
+        *(gather_lanes(getattr(t, name), plan.mesh, plan.mesh_axis)
+          for name in ("cols", "vals", "dinv")))
+
+
 def _check_tables(plan, tables: dict | None) -> list[Violation]:
     """The tables the plan's kernels launch: the fused table and its
     segments (round-major), each sweep's step tables and segments (index),
-    or the whole fused table and the rank's block of it (mesh)."""
+    or the whole fused table, its segments and the rank's block of it
+    (mesh: the build's whole tables, else the ranks' blocks gathered)."""
     if plan.mesh is not None:
-        if tables is None or "fused" not in tables:
-            raise ValueError(
-                "a mesh plan keeps only its lane block of the fused tables; "
-                "build it with validate= to prove the whole tables before "
-                "they are sharded")
-        whole = tables["fused"]
+        whole = (tables or {}).get("fused")
+        if whole is None:
+            whole = _gather_whole_tables(plan)
+        cols = _host(whole.cols)
         out = check_fused_tables(types.SimpleNamespace(
-            cols=_host(whole.cols), vals=_host(whole.vals)))
+            cols=cols, vals=_host(whole.vals)))
+        out += _segment_check(whole, cols, True, "segments/fused")
         return out + check_shard_block(whole, plan._precond.tables,
                                        plan.mesh, plan.mesh_axis)
     if plan.layout == "round_major":
@@ -673,8 +694,10 @@ def validate_plan(plan, mode: str = "full",
     validates: ``{"fwd", "bwd"}`` host ``StepTables`` of an index plan
     (else they are read back from the device sweep tables,
     ``sweep_step_tables``) and ``{"fused"}``, the whole fused tables of a
-    mesh plan before they were sharded (a built mesh plan keeps only its
-    block, so "full" needs them).  A plan made by
+    mesh plan before they were sharded.  A built mesh plan keeps only its
+    lane block: "full" then all-gathers the ranks' blocks over the mesh
+    axis (every rank must call it, as every rank builds), and raises
+    ``ValueError`` when the process group is gone.  A plan made by
     ``SolverPlan.from_arrays`` has no setup state and raises
     ``ValueError``, as its ``refactor`` does.
     """

@@ -37,6 +37,7 @@ from .trisolve import (LAYOUTS, DeviceFusedTables, DeviceTables,
                        HBMCPreconditioner, RoundMajorPreconditioner,
                        backward_solve, backward_solve_batched,
                        build_preconditioner, build_preconditioner_from_rounds,
+                       build_round_major_preconditioner,
                        build_round_major_preconditioner_from_rounds,
                        forward_solve, forward_solve_batched, fused_solve,
                        fused_solve_batched, sequential_backward,

@@ -39,6 +39,7 @@ A failed capture or replay raises: there is no fallback to a host loop.
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable
 
@@ -192,6 +193,28 @@ class BlockLoop:
         # static ones
         return tuple(s.clone() for s in self._static), blocks
 
+    def run_once(self, state: State,
+                 step: Callable[[State], State]) -> State:
+        """One block from ``state``, with no flag: eagerly on the CPU; on
+        the card the first call runs the block eagerly and then captures
+        it, and every later call replays the graph (``step`` is then not
+        called again)."""
+        state = tuple(state)
+        if state[0].device.type != "cuda":
+            _counts["blocks"] += 1
+            return self._block(step, state)
+        if self.graph is None:
+            out = self._first_block(state, step)
+            self._capture(state, step, None)
+            return out
+        for s, t in zip(self._static, state, strict=True):
+            s.copy_(t)
+        self.graph.replay()
+        kernels._add_counter_values(self._launches)
+        _counts["blocks"] += 1
+        _counts["replays"] += 1
+        return tuple(s.clone() for s in self._static)
+
     def _run_eager(self, state, step, flag) -> tuple[State, int]:
         blocks = 0
         live = True
@@ -221,6 +244,31 @@ class BlockLoop:
         before = _counter_values()
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
+        # no garbage collection while the stream captures: collecting an
+        # unreachable plan would destroy its graphs, which CUDA forbids
+        # during a capture, and the capture would fail
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            self._record(graph, dev, static, live, step, flag)
+        finally:
+            if collecting:
+                gc.enable()
+        torch.cuda.synchronize(dev)
+        self.capture_seconds = time.perf_counter() - t0
+        after = _counter_values()
+        # the capture issued one block's launches and ran none of them
+        self._launches = {key: after[key] - before[key] for key in after}
+        kernels._add_counter_values(self._launches, -1)
+        self.graph, self._static, self._flag = graph, static, live
+        self._cache.captures += 1
+        _counts["captures"] += 1
+
+    def _record(self, graph, dev, static: State, live: torch.Tensor,
+                step, flag) -> None:
+        """Capture one block over ``static`` into ``graph``: the block
+        writes its results back into ``static`` and, with a ``flag``, the
+        flag into ``live``."""
         with torch.cuda.graph(graph, pool=self._cache._graph_pool(),
                               stream=self._cache._side_stream(dev)):
             out = self._block(step, static)
@@ -232,13 +280,5 @@ class BlockLoop:
             for s, o in zip(static, out, strict=True):
                 if o is not s:
                     s.copy_(o)
-            live.copy_(flag(static))
-        torch.cuda.synchronize(dev)
-        self.capture_seconds = time.perf_counter() - t0
-        after = _counter_values()
-        # the capture issued one block's launches and ran none of them
-        self._launches = {key: after[key] - before[key] for key in after}
-        kernels._add_counter_values(self._launches, -1)
-        self.graph, self._static, self._flag = graph, static, live
-        self._cache.captures += 1
-        _counts["captures"] += 1
+            if flag is not None:
+                live.copy_(flag(static))

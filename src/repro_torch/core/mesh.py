@@ -8,7 +8,10 @@ sharded operands.  ``axis_group`` gives one axis's process group, size and
 this rank's place on it; ``all_gather_`` is the one collective of the mesh
 path, counted per caller so that a run can show how many it issued
 (``gather_counts``; ``core.device_loop`` adds a replayed block's
-collectives to them as it adds its kernel launches).
+collectives to them as it adds its kernel launches).  ``gather_lanes``
+assembles a lane-sharded table from every rank's block, for the static
+checks of a built mesh plan (``analysis.validate_plan``); it is not on the
+solve path and is not counted.
 
 torch API notes: ``DeviceMesh.size(name)`` is not accepted by every torch
 version, so the axis size is the size of the axis's group; and
@@ -62,3 +65,18 @@ def all_gather_(out: torch.Tensor, chunk: torch.Tensor,
     dist.all_gather_into_tensor(out, chunk, group=group)
     globals()[name] += 1
     return out
+
+
+def gather_lanes(block: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The whole table of which ``block`` is this rank's lane block: every
+    rank's block of dim 1 gathered over ``axis`` in rank order, as
+    ``trisolve.shard_fused_tables`` cut them.  ``block`` is (steps, r_loc,
+    ...); returns (steps, size * r_loc, ...).  SPMD: every rank of the axis
+    must call it.  Not counted in ``gather_counts``."""
+    group, size, _ = axis_group(mesh, axis)
+    rest = tuple(block.shape[2:])
+    out = block.new_empty((size * block.shape[0],) + tuple(block.shape[1:]))
+    dist.all_gather_into_tensor(out, block.contiguous(), group=group)
+    return (out.reshape((size,) + tuple(block.shape)).movedim(0, 1)
+            .reshape((block.shape[0], size * block.shape[1]) + rest)
+            .contiguous())

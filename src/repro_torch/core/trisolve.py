@@ -54,7 +54,8 @@ from ..kernels.segments import barrier_segments
 from .hbmc import HBMCOrdering
 from .mesh import all_gather_, axis_group
 from .sell import (FusedRoundMajorTables, RoundMajorLayout, StepTables,
-                   fuse_round_major, pack_factor, pack_factor_hbmc)
+                   fuse_round_major, pack_factor, pack_factor_hbmc,
+                   rounds_hbmc)
 
 LAYOUTS = ("round_major", "index")
 
@@ -348,6 +349,19 @@ def build_round_major_preconditioner_from_rounds(
         tables=DeviceFusedTables.from_host(fused_h, dtype=dtype,
                                            device=device))
     return pre, fused_h.layout
+
+
+def build_round_major_preconditioner(
+        l_final: sp.csr_matrix, ordering: HBMCOrdering,
+        dtype: torch.dtype = torch.float64,
+        device: str | torch.device = DEFAULT_DEVICE
+        ) -> tuple[RoundMajorPreconditioner, RoundMajorLayout]:
+    """``build_round_major_preconditioner_from_rounds`` over an HBMC
+    ordering's rounds, its dummy rows dropped."""
+    return build_round_major_preconditioner_from_rounds(
+        l_final, rounds_hbmc(ordering, reverse=False),
+        rounds_hbmc(ordering, reverse=True), drop_mask=ordering.is_dummy,
+        dtype=dtype, device=device)
 
 
 @dataclasses.dataclass(frozen=True)

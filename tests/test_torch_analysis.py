@@ -39,6 +39,7 @@ import sys
 import types
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -997,10 +998,32 @@ def test_mesh_plan_proves_its_collectives(mesh1):
     twice = lambda q: plan._precond(plan._precond(q))        # noqa: E731
     found = lint(twice, nonzero_rhs(plan), budget=DISTRIBUTED_APPLY, steps=steps)
     assert found and f"found {2 * steps}" in found[0]
-    # the whole tables exist only while the plan is built
-    assert validate_plan(plan, "cheap") == []
-    with pytest.raises(ValueError, match="mesh plan"):
-        validate_plan(plan, "full")
+    # a built mesh plan keeps only its lane block: "full" and "deep"
+    # gather the ranks' blocks and prove the whole tables
+    assert [validate_plan(plan, m) for m in ("cheap", "full", "deep")] == \
+        [[], [], []]
+
+
+def test_built_mesh_plan_validates_as_the_single_device_plan(mesh1):
+    """``validate_plan`` on a built mesh plan returns the reference's
+    verdict (``[]``, as the reference's on its one-device mesh plan) in
+    every mode, and on a doctored block the single-device plan's witnesses
+    on the same doctored table; once the group is gone it raises."""
+    import _torch_mesh_worker as worker
+    a, _, _ = worker.system()
+    plan = build_plan(a, method="hbmc", mesh=mesh1, **worker.PLAN)
+    single = build_plan(a, method="hbmc", device="cpu", **worker.PLAN)
+    modes = ("cheap", "full", "deep")
+    assert [validate_plan(plan, m) for m in modes] == [[], [], []]
+    jp = j_build_plan(a, method="hbmc", mesh=jax.make_mesh((1,), ("data",)),
+                      **worker.PLAN)
+    assert [j_validate_plan(jp, m) for m in modes] == [[], [], []]
+    pos = worker.doctor(plan._precond.tables, 0, plan._precond.lanes)
+    worker.doctor(single._precond.tables, 0, plan._precond.lanes)
+    want = validate_plan(single, "full")
+    assert any(v.kind == "premature-read" and v.edge == (pos, pos)
+               for v in want), _rows(want)
+    assert validate_plan(plan, "full") == want
 
 
 def test_doctored_collectives_are_named(mesh1):

@@ -716,6 +716,38 @@ def test_capture_count_stays_one_across_warm_solves_and_refactor(cuda):
     np.testing.assert_array_equal(rep.x, cold.x)
 
 
+def test_no_collection_runs_during_a_capture(cuda):
+    """A plan that died in a reference cycle still holds its graphs until
+    the garbage collector frees them, and CUDA forbids destroying a graph
+    while a stream captures: the loops capture with the collector off.
+    With a collection due at every allocation, none starts while a stream
+    captures, and the loop is captured."""
+    import gc
+    a = laplace_2d(30, 27)
+    b = np.random.default_rng(8).normal(size=a.shape[0])
+    dead = build_plan(a, block_size=8, w=4, device=cuda)
+    dead.solve(b)
+    dead.cycle = dead
+    del dead
+    capturing = []
+
+    def watch(phase, info):
+        if phase == "start":
+            capturing.append(torch.cuda.is_current_stream_capturing())
+
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    gc.callbacks.append(watch)
+    try:
+        plan = build_plan(a, block_size=8, w=4, device=cuda)
+        rep = plan.solve(b)
+    finally:
+        gc.callbacks.remove(watch)
+        gc.set_threshold(*threshold)
+    assert capturing and not any(capturing)
+    assert plan._capture_count == 1 and rep.result.status == "CONVERGED"
+
+
 # ---------------------------------------------------------------------------
 # The mesh path: the shard step, sell_spmv_block, a one-rank NCCL mesh.
 # ---------------------------------------------------------------------------

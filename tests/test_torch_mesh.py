@@ -16,7 +16,6 @@ A one-rank group is made per module through a file store and destroyed at
 the module's end; a multi-rank run joins its ranks with a 120 s timeout
 that fails the test.
 """
-import time
 
 import jax
 import jax.numpy as jnp
@@ -25,7 +24,6 @@ import pytest
 import scipy.sparse as sp
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 from torch.distributed.device_mesh import init_device_mesh
 
 import _torch_mesh_worker as worker
@@ -400,24 +398,10 @@ def spawned(tmp_path_factory):
 
     def spawn(world: int, part: str) -> list[dict]:
         out = tmp_path_factory.mktemp(f"ranks{world}_{part}")
-        ctx = mp.start_processes(worker.run_rank,
-                                 args=(world, str(out / "store"), str(out),
-                                       part),
-                                 nprocs=world, join=False,
-                                 start_method="spawn")
-        deadline = time.monotonic() + JOIN_SECONDS
         try:
-            while not ctx.join(timeout=max(deadline - time.monotonic(),
-                                           0.1)):
-                if time.monotonic() >= deadline:
-                    pytest.fail(f"{world} ranks ({part}) did not end within "
-                                f"{JOIN_SECONDS} s")
-        finally:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.kill()
-                p.join(5)
-        return [dict(np.load(out / f"rank{r}.npz")) for r in range(world)]
+            return worker.spawn(world, part, str(out), JOIN_SECONDS)
+        except TimeoutError as err:
+            pytest.fail(str(err))
 
     return run
 

@@ -4,7 +4,9 @@ The port keeps its own numpy/scipy copies of the setup modules (importing
 the reference package loads JAX), so every setup product must be
 bitwise-equal to the reference's: permutation, padded system, rounds for
 both schedulers, IC(0) factor and clamp count, fused round-major tables and
-layout, and the SELL-w operand -- on the five paper generators.
+layout, and the SELL-w operand -- on the five paper generators, and on a
+sweep of random ``graph_laplacian`` graphs (seeds, sizes, degrees) and
+non-square ``laplace_2d`` grids.
 """
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ from repro.core.ic0 import FactorBreakdownError as JFactorBreakdownError
 from repro.core.ic0 import ic0_refactor as j_ic0_refactor
 from repro.core.ic0 import ic0_structure as j_ic0_structure
 from repro.core import build_plan as j_build_plan
+from repro.core import matrices as j_matrices
 from repro.core.matrices import PAPER_PROBLEMS, PAPER_SHIFTS, paper_problem
 from repro.serve.faults import indefinite_matrix
 from repro_torch.core import build_plan as t_build_plan
@@ -64,9 +67,30 @@ def test_generators_bitwise(name):
 @pytest.mark.parametrize("name", PAPER_PROBLEMS)
 def test_setup_pipeline_bitwise(name, method, scheduler):
     a, _ = paper_problem(name, scale="tiny")
+    _pipeline_bitwise(a, method, scheduler, PAPER_SHIFTS.get(name, 0.0))
+
+
+#: the random and non-square sweep: (generator, its arguments)
+SWEEP = [("graph_laplacian", (150, 3, 1)), ("graph_laplacian", (300, 4, 2)),
+         ("graph_laplacian", (257, 6, 3)), ("graph_laplacian", (97, 2, 7)),
+         ("laplace_2d", (13, 11)), ("laplace_2d", (5, 17)),
+         ("laplace_2d", (24, 7))]
+
+
+@pytest.mark.parametrize("method", ["mc", "bmc", "hbmc"])
+@pytest.mark.parametrize("gen, args", SWEEP,
+                         ids=[f"{g}{a}" for g, a in SWEEP])
+def test_setup_sweep_bitwise(gen, args, method):
+    """Orderings, rounds, factor and packed tables of random graphs and
+    non-square grids, bitwise the reference's."""
+    a = getattr(j_matrices, gen)(*args)
+    _csr_eq(a, getattr(t_matrices, gen)(*args), f"{gen}{args}")
+    _pipeline_bitwise(a, method, "coloring", 0.0)
+
+
+def _pipeline_bitwise(a, method: str, scheduler: str, shift: float):
     a = sp.csr_matrix(a)
     a.sort_indices()
-    shift = PAPER_SHIFTS.get(name, 0.0)
     sj = j_plan._order_system(a, None, method, BS, W, scheduler=scheduler)
     st = t_plan._order_system(a, None, method, BS, W, scheduler=scheduler)
     _eq(sj.perm, st.perm, "perm")
