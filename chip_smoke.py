@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the HBMC-ICCG solver on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port of the HBMC-ICCG solver, and its LM serving
+path, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -143,6 +144,31 @@ its last line:
    on the host, its iterations, setup, cold solve and warm solve (a
    second solve of the row's plan, bitwise the first) beside the card's
    name and power limit, and whether BMC and HBMC took equal counts.
+6. LM serving (``repro_torch.serve.step`` over ``repro_torch.models``;
+   PyTorch ops, no kernel of the port: the counters stay 0), TF32 off:
+   6a the ten smoke configs in f32, drawn on the CPU and copied to the
+   card: prefill logits and six decode steps fed the CPU's greedy tokens
+   (stub frontends: seeded embeddings) within rel 1e-4 of the CPU, and
+   the greedy tokens' agreement; 6b mamba2-130m at its full config in f32,
+   batch 2, a 300-token prompt (a 256-token SSD chunk and a padded one),
+   16 new tokens: the card within rel 1e-4 of the CPU, and decode within
+   rel 1e-3 of the full forward over prompt and fed tokens; 6c qwen2.5-3b
+   at its full config (36 layers, d 2048, vocab 151,936; 3.397e9
+   parameters, 6.79 GB of bf16) drawn on the card, bf16 cache, batch 4, a
+   1,536-token prompt (two query chunks of ``flash_core``), 64 new tokens:
+   prefill ms, decode step ms (median, p84, n 64; device-synchronised),
+   tokens per second of decode and of ``greedy_generate``, peak
+   ``max_memory_allocated`` (and what the process held before), the byte
+   floor (weights / 3.35 TB/s), profiles of one prefill and four decode
+   steps; the decode chain again in turns with the garbage collector on
+   and off (the collector's ms by generation, the steps' CPU ms, a probe
+   of the host's cost of fixed work before each turn), in this process
+   and in a new one that holds only the model, where the collector is
+   also frozen, the heap trimmed, a profiler session run, and 4 GB of the
+   device and 4 GB of the host with 100,000 small objects held; gates:
+   decode logits against the full forward over prompt and generated
+   tokens, and the bf16 prefill against the same weights upcast to f32,
+   each within 5e-2 x max|logit|.
 
 Its last lines: one JSON object with a row per kernel (``launches`` are
 wrapper calls on the main path, ``cuda_launches`` the CUDA launches they
@@ -151,9 +177,13 @@ issued), the card's name and power limit from ``nvidia-smi``, then
 """
 from __future__ import annotations
 
+import ctypes
+import gc
 import json
+import os
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -1288,7 +1318,6 @@ def analysis_phase(a, plan_kw: dict, on_card: bool) -> None:
     ``check_segments`` must witness and which is never launched; a service
     run with ``PlanCache(validate="full")`` admission; and the CLI in a
     subprocess.  Every finding list must be empty."""
-    import os
 
     import numpy as np
     import torch
@@ -1913,6 +1942,573 @@ def examples_phase(device: str, bench_scale: str) -> None:
         fem.solve_iccg = real_solve
 
 
+# ---------------------------------------------------------------------------
+# phase 6: LM serving
+# ---------------------------------------------------------------------------
+
+#: 6a: every smoke config, card against CPU (batch, prompt, new tokens)
+LM_SMOKE = (2, 20, 6)
+#: 6b: mamba2-130m at its full config, f32 (a 256-token chunk and a padded
+#: one)
+LM_MAMBA = ("mamba2-130m", 2, 300, 16)
+#: 6c: qwen2.5-3b at its full config, bf16 (the 1,536-token prompt is two
+#: query chunks of flash_core: q_chunk 1024)
+LM_QWEN = ("qwen2.5-3b", 4, 1536, 64)
+#: 6c: the process states the decode chain is timed in, in turns, in the
+#: process after phases 1-5 and in a new process that holds only the model
+GC_STATES = ("on", "off", "on")
+NEW_PROCESS_STATES = ("on", "frozen", "off", "trimmed", "profiled", "on",
+                      "device heap", "host heap")
+HEAP_STATES = ("device heap", "host heap")
+#: what the heap states hold (the process after phases 1-5 holds ~4 GB of
+#: the device beyond 6c's weights, ~2.8 GB more of the host and ~100,000
+#: more objects the collector tracks): MB, and small dicts
+HEAP_MB, HEAP_OBJECTS = 4096, 100_000
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, the published peak
+LM_REL_F32 = 1e-4           # card vs CPU, f32 (6a, 6b)
+LM_REL_DECODE_F32 = 1e-3    # decode vs the full forward, f32 (6b)
+LM_REL_BF16 = 5e-2          # 6c: decode vs forward, bf16 vs f32 weights
+
+
+def lm_prompt(cfg, seed: int, b: int, s: int):
+    """(B, S) token ids, or (B, S, d) f32 embeddings for a stub frontend,
+    from ``default_rng(seed)``."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    if cfg.takes_embeddings:
+        return torch.tensor(rng.normal(size=(b, s, cfg.d_model)) * 0.3,
+                            dtype=torch.float32)
+    return torch.tensor(rng.integers(0, cfg.vocab, size=(b, s)))
+
+
+def lm_rel(got, want) -> float:
+    """max |got - want| / max |want|, in f32."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+class GcClock:
+    """The wall ms the garbage collector spends while the context is open,
+    by generation, and its collections (through ``gc.callbacks``)."""
+
+    def __enter__(self):
+        self.ms, self.n, self._t0 = [0.0, 0.0, 0.0], [0, 0, 0], None
+        gc.callbacks.append(self._tick)
+        return self
+
+    def _tick(self, phase, info) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            g = info["generation"]
+            self.ms[g] += (time.perf_counter() - self._t0) * 1e3
+            self.n[g] += 1
+            self._t0 = None
+
+    def __exit__(self, *exc) -> None:
+        gc.callbacks.remove(self._tick)
+
+
+def lm_decode(params, cfg, prompt, n_new: int, device, *, cache_dtype,
+              feed=None, timed: bool = False, clock: GcClock | None = None
+              ) -> dict:
+    """``prefill`` and ``n_new`` ``serve_step`` calls: the greedy chain
+    (each step's argmax fed to the next, as ``greedy_generate``), or the
+    tokens / embeddings of ``feed`` (B, n_new[, d]).  Returns the prefill
+    logits, the steps' logits (B, n_new, vocab), the fed inputs, and with
+    ``timed`` the prefill's and each step's wall ms (device-synchronised);
+    with an open ``clock``, the collector's ms inside the steps and the CPU
+    ms the steps took on this thread and in the whole process.
+    """
+    import torch
+
+    from repro_torch.serve.step import prefill, serve_step
+
+    def sync():
+        if timed:
+            torch.cuda.synchronize(device)
+    s = prompt.shape[1]
+    sync()
+    t0 = time.perf_counter()
+    cache, logits = prefill(params, cfg, prompt, max_len=s + n_new,
+                            cache_dtype=cache_dtype, device=device)
+    sync()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None] if feed is None \
+        else None
+    steps, fed, step_ms = [], [], []
+    gc_before = sum(clock.ms) if clock else 0.0
+    thread_cpu = process_cpu = 0.0
+    for j in range(n_new):
+        if feed is not None:
+            tok = feed[:, j:j + 1].to(device)
+        c0, p0 = time.thread_time(), time.process_time()
+        t0 = time.perf_counter()
+        lg, cache = serve_step(params, cache, tok, s + j, cfg=cfg,
+                               device=device)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        thread_cpu += time.thread_time() - c0
+        process_cpu += time.process_time() - p0
+        steps.append(lg)
+        fed.append(tok)
+        if feed is None:
+            tok = torch.argmax(lg, dim=-1)[:, None]
+    return dict(logits=logits, steps=torch.stack(steps, 1),
+                fed=torch.cat(fed, 1), prefill_ms=prefill_ms,
+                step_ms=step_ms,
+                step_gc_ms=sum(clock.ms) - gc_before if clock else None,
+                thread_cpu_ms=thread_cpu * 1e3, process_cpu_ms=process_cpu * 1e3)
+
+
+def host_probe(device) -> dict:
+    """The host's cost of fixed work, in us an item: a pure-Python loop
+    (``python``), an in-place add on a 4-element tensor on ``device``
+    (``op``: dispatch and launch) and an allocation of 4,096 floats there
+    (``alloc``: dispatch and the caching allocator), each timed over 2,000
+    items and synchronised once at its end."""
+    import torch
+    dev = torch.device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    acc = 0
+    for i in range(200_000):
+        acc += i & 7
+    py_us = (time.perf_counter() - t0) / 200_000 * 1e6
+    x = torch.zeros(4, device=dev)
+    times = []
+    for make in (lambda: x.add_(1.0),
+                 lambda: torch.empty(4096, device=dev)):
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            make()
+        sync()
+        times.append((time.perf_counter() - t0) / 2000 * 1e6)
+    return dict(python=py_us, op=times[0], alloc=times[1])
+
+
+def profiler_session(device) -> None:
+    """One ``torch.profiler`` session (host and, on the card, device
+    activity) around a ``host_probe``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts):
+        host_probe(device)
+
+
+def hold_heap(state: str, device, scale: float) -> list:
+    """Memory for a heap state, ``scale`` x ``HEAP_MB`` MB in 1 MB pieces:
+    "device heap" tensors on ``device``; "host heap" written numpy arrays
+    with ``HEAP_OBJECTS`` x ``scale`` small dicts made among them."""
+    import numpy as np
+    import torch
+    n = max(1, int(HEAP_MB * scale))
+    if state == "device heap":
+        return [torch.ones(262_144, device=device) for _ in range(n)]
+    per = max(1, int(HEAP_OBJECTS * scale) // n)
+    held = []
+    for i in range(n):
+        held.append(np.ones(131_072))
+        held.extend({"i": i, "j": j} for j in range(per))
+    return held
+
+
+def lm_gc_turns(params, cfg, prompt, n_new: int, device,
+                states=GC_STATES, heap_scale: float = 1.0) -> dict:
+    """The greedy chain of ``lm_decode`` timed in each of ``states`` in
+    turns, each after a ``host_probe``: the collector as the process has
+    it ("on"), with every object alive before the chain left out of its
+    scans ("frozen", ``gc.freeze``), disabled ("off"), on after glibc's
+    ``malloc_trim(0)`` gave the heap's free pages back ("trimmed"), on
+    after a ``profiler_session`` ("profiled"), and on while ``hold_heap``
+    memory is held (the heap states, kept until the last turn).
+    Returns the process's state
+    (objects the collector tracks, dispatch and function modes, the
+    profiler, threads, resident memory) and, per turn, the probe, the
+    steps' median, min and max ms, their summed wall ms and CPU ms (this
+    thread, the process), the collector's ms inside the steps and its
+    collections by generation over the chain."""
+    import torch
+    timed = torch.device(device).type == "cuda"
+    gc.collect()
+    out = dict(objects=len(gc.get_objects()),
+               dispatch_modes=torch._C._len_torch_dispatch_stack(),
+               function_modes=torch._C._len_torch_function_stack(),
+               profiler=bool(torch.autograd.profiler._is_profiler_enabled),
+               threads=threading.active_count(),
+               os_threads=len(os.listdir("/proc/self/task")),
+               load=os.getloadavg()[0], cpus=len(os.sched_getaffinity(0)),
+               rss_gb=resident_gb(),
+               turns=[])
+    held = []
+    for state in states:
+        gc.collect()
+        if state in HEAP_STATES:
+            held.append(hold_heap(state, device, heap_scale))
+        elif state == "trimmed":
+            ctypes.CDLL("libc.so.6").malloc_trim(0)
+        elif state == "profiled":
+            profiler_session(device)
+        probe = host_probe(device)
+        if state == "frozen":
+            gc.freeze()
+        elif state == "off":
+            gc.disable()
+        try:
+            with GcClock() as clock:
+                run = lm_decode(params, cfg, prompt, n_new, device,
+                                cache_dtype=torch.bfloat16, timed=timed,
+                                clock=clock)
+        finally:
+            gc.enable()
+            gc.unfreeze()
+        ms = sorted(run["step_ms"])
+        out["turns"].append(dict(
+            state=state, probe=probe, median_ms=ms[len(ms) // 2],
+            min_ms=ms[0], max_ms=ms[-1], wall_ms=sum(ms),
+            thread_cpu_ms=run["thread_cpu_ms"],
+            process_cpu_ms=run["process_cpu_ms"],
+            step_gc_ms=run["step_gc_ms"], gc_ms=clock.ms,
+            collections=clock.n, rss_gb=resident_gb()))
+    return out
+
+
+def resident_gb() -> float:
+    """This process's resident host memory (``VmRSS``), GB."""
+    with open("/proc/self/status") as f:
+        kb = next(int(line.split()[1]) for line in f
+                  if line.startswith("VmRSS:"))
+    return kb * 1024 / 1e9
+
+
+def lm_alone(device: str, full: bool) -> dict:
+    """6c's model, prompt and warm-up in a process that holds nothing else,
+    then ``lm_gc_turns`` over ``NEW_PROCESS_STATES``; run by
+    ``lm_fresh_process``."""
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import init_params
+    arch, b, s, n_new = LM_QWEN
+    cfg = get_config(arch) if full else get_smoke_config(arch)
+    if not full:
+        s, n_new = 40, 8
+    dev = torch.device(device)
+    params = init_params(cfg, seed=0, device=dev)
+    prompt = lm_prompt(cfg, 3, b, s).to(dev)
+    lm_decode(params, cfg, prompt, 2, dev, cache_dtype=torch.bfloat16,
+              timed=dev.type == "cuda")                        # warm-up
+    return lm_gc_turns(params, cfg, prompt, n_new, dev,
+                       states=NEW_PROCESS_STATES,
+                       heap_scale=1.0 if full else 0.01)
+
+
+def lm_fresh_process(device: str, full: bool) -> dict:
+    """``lm_alone`` in a new Python process: the decode step as a process
+    that only serves sees it."""
+    code = ("import json, sys, chip_smoke; print(json.dumps(chip_smoke."
+            "lm_alone(sys.argv[1], sys.argv[2] == 'full')))")
+    out = subprocess.run([sys.executable, "-c", code, str(device),
+                          "full" if full else "smoke"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"6c in a new process failed:\n{out.stdout}\n"
+                             f"{out.stderr}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def log_gc_turns(where: str, got: dict) -> None:
+    log(f"6c decode {where}: {got['objects']:,} objects tracked by the "
+        f"collector, {got['dispatch_modes']} dispatch / "
+        f"{got['function_modes']} function modes, profiler "
+        f"{'on' if got['profiler'] else 'off'}, {got['threads']} Python / "
+        f"{got['os_threads']} OS threads, {got['cpus']} CPUs, load "
+        f"{got['load']:.2f}, resident {got['rss_gb']:.2f} GB")
+    for t in got["turns"]:
+        gen = ", ".join(f"{n} / {ms:.1f} ms" for n, ms in
+                        zip(t["collections"], t["gc_ms"]))
+        p = t["probe"]
+        log(f"  probe: python {p['python'] * 1e3:.1f} ns an item, op "
+            f"{p['op']:.2f} us, alloc {p['alloc']:.2f} us")
+        log(f"  {t['state']:11s}: step median {t['median_ms']:.3f} ms "
+            f"(min {t['min_ms']:.3f}, max {t['max_ms']:.3f}); steps "
+            f"{t['wall_ms']:.1f} ms wall, CPU {t['thread_cpu_ms']:.1f} ms "
+            f"this thread / {t['process_cpu_ms']:.1f} ms the process; "
+            f"resident {t['rss_gb']:.2f} GB; "
+            f"collector "
+            f"{t['step_gc_ms']:.1f} ms inside the steps; collections / ms "
+            f"by generation 0, 1, 2 over the chain: {gen}")
+
+
+def lm_card_vs_cpu(cfg, b: int, s: int, n_new: int, device) -> dict:
+    """One seeded model (drawn on the CPU) in f32 on the CPU and on
+    ``device``: the CPU's greedy chain, the same inputs fed to the device;
+    prefill and decode logits within ``LM_REL_F32``.  Returns both runs and
+    the device's params."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import init_params
+    params_cpu = init_params(cfg, 0, device="cpu", dtype=torch.float32)
+    params = copy.deepcopy(params_cpu).to(device)
+    prompt = lm_prompt(cfg, 1, b, s)
+    feed = None
+    if cfg.takes_embeddings:
+        feed = lm_prompt(cfg, 2, b, n_new)
+    cpu = lm_decode(params_cpu, cfg, prompt, n_new, "cpu",
+                    cache_dtype=torch.float32, feed=feed)
+    card = lm_decode(params, cfg, prompt, n_new, device,
+                     cache_dtype=torch.float32,
+                     feed=cpu["fed"] if feed is None else feed)
+    rel_pre = lm_rel(card["logits"].cpu(), cpu["logits"])
+    rel_dec = lm_rel(card["steps"].cpu(), cpu["steps"])
+    agree = float(np.mean(
+        (torch.argmax(card["steps"], -1).cpu()
+         == torch.argmax(cpu["steps"], -1)).numpy()))
+    if not (torch.isfinite(card["steps"]).all()
+            and torch.isfinite(card["logits"]).all()):
+        raise AssertionError(f"{cfg.name}: non-finite logits on {device}")
+    if rel_pre > LM_REL_F32 or rel_dec > LM_REL_F32:
+        raise AssertionError(f"{cfg.name}: {device} vs CPU rel prefill "
+                             f"{rel_pre:.2e}, decode {rel_dec:.2e} > "
+                             f"{LM_REL_F32}")
+    return dict(cpu=cpu, card=card, params=params, prompt=prompt,
+                rel_prefill=rel_pre, rel_decode=rel_dec, agree=agree)
+
+
+def lm_profile(label: str, fn, reps: int, device) -> None:
+    """Device time by kernel over ``reps`` calls of ``fn`` (torch.profiler)
+    and the device's busy share of their wall time under the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict[str, float] = {}
+    records = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            records += 1
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+    if not by_name:
+        log(f"profile of {label}: no device activity recorded (busy share: "
+            f"not measured); {wall_ms / reps:.2f} ms a call under the "
+            "profiler")
+        return
+    busy = sum(by_name.values())
+    log(f"profile of {label}: device {busy / reps:.3f} ms a call in "
+        f"{records / reps:.0f} device records, wall {wall_ms / reps:.3f} ms "
+        f"a call under the profiler ({100 * busy / wall_ms:.1f}% busy); "
+        "device ms a call by kernel:")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"  {ms / reps:9.4f}  {name[:90]}")
+
+
+def lm_profiles(params, cfg, prompt, device, steps: int = 4) -> None:
+    """6c under the profiler: one prefill, then ``steps`` greedy decode
+    steps from its cache."""
+    import torch
+
+    from repro_torch.serve.step import prefill, serve_step
+    s = prompt.shape[1]
+    state = {}
+
+    def run_prefill():
+        state["cache"], logits = prefill(params, cfg, prompt,
+                                         max_len=s + steps, device=device)
+        state["tok"] = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        state["pos"] = s
+
+    def step():
+        lg, state["cache"] = serve_step(params, state["cache"], state["tok"],
+                                        state["pos"], cfg=cfg, device=device)
+        state["tok"] = torch.argmax(lg, dim=-1)[:, None]
+        state["pos"] += 1
+    lm_profile("one prefill", run_prefill, 1, device)
+    lm_profile(f"{steps} decode steps", step, steps, device)
+
+
+def lm_phase(device: str, full: bool) -> None:
+    """Phase 6: LM serving (``repro_torch.serve.step`` over
+    ``repro_torch.models``).  ``full=False`` (the CPU rehearsal) runs 6b
+    and 6c at their smoke configs."""
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+    from repro_torch.models import forward, init_params
+    from repro_torch.serve.step import greedy_generate, prefill
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("allow_tf32 is on: the f32 parity checks need "
+                             "torch's default (off)")
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    reset_counts()
+
+    # -- 6a: the ten smoke configs, card vs CPU, f32 -----------------------
+    b, s, n_new = LM_SMOKE
+    t0 = time.perf_counter()
+    for arch in ARCH_IDS:
+        cfg = get_smoke_config(arch)
+        got = lm_card_vs_cpu(cfg, b, s, n_new, dev)
+        log(f"6a {arch:18s} ({cfg.name}): prefill rel {got['rel_prefill']:.2e}, "
+            f"decode rel {got['rel_decode']:.2e} (teacher-forced, {n_new} "
+            f"steps); greedy tokens agree {100 * got['agree']:.1f}%")
+    log(f"6a: {time.perf_counter() - t0:.1f} s")
+
+    # -- 6b: mamba2-130m at its full config, f32 --------------------------
+    arch, b, s, n_new = LM_MAMBA
+    cfg = get_config(arch) if full else get_smoke_config(arch)
+    if not full:
+        s = 45
+    t0 = time.perf_counter()
+    got = lm_card_vs_cpu(cfg, b, s, n_new, dev)
+    seq = torch.cat([got["prompt"].to(dev), got["card"]["fed"]], 1)
+    pos = torch.arange(s + n_new, device=dev)[None].expand(b, -1)
+    with torch.no_grad():
+        full_logits, _, _ = forward(got["params"], cfg, seq, pos,
+                                    device=dev)
+    rel_fwd = lm_rel(got["card"]["steps"], full_logits[:, s:])
+    log(f"6b {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.param_count() / 1e6:.1f}M params) f32, batch {b}, prompt "
+        f"{s}, {n_new} new: card vs CPU prefill rel "
+        f"{got['rel_prefill']:.2e}, decode rel {got['rel_decode']:.2e}; "
+        f"decode vs full forward rel {rel_fwd:.2e} (gate "
+        f"{LM_REL_DECODE_F32}); greedy tokens agree "
+        f"{100 * got['agree']:.1f}%; {time.perf_counter() - t0:.1f} s")
+    if rel_fwd > LM_REL_DECODE_F32:
+        raise AssertionError(f"6b: decode vs full forward rel {rel_fwd:.2e}")
+    del got, full_logits, seq
+
+    # -- 6c: qwen2.5-3b at its full config, bf16 --------------------------
+    arch, b, s, n_new = LM_QWEN
+    cfg = get_config(arch) if full else get_smoke_config(arch)
+    if not full:
+        s, n_new = 40, 8
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    if on_card:
+        torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    if n_params != cfg.param_count():
+        raise AssertionError(f"6c: {n_params} parameters, config says "
+                             f"{cfg.param_count()}")
+    log(f"6c {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}: {n_params:,} params, {weight_bytes / 1e9:.3f} GB "
+        f"bf16, drawn on {dev} in {init_s:.2f} s")
+    prompt = lm_prompt(cfg, 3, b, s).to(dev)
+    lm_decode(params, cfg, prompt, 2, dev, cache_dtype=torch.bfloat16,
+              timed=on_card)                                   # warm-up
+    # greedy_generate's peak, and what the process held before it (the
+    # weights and whatever earlier phases keep)
+    held = None
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    out = greedy_generate(params, cfg, prompt, n_new, max_len=s + n_new,
+                          device=dev)
+    out_host = out.cpu()                     # waits for the device
+    greedy_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else None
+    run = lm_decode(params, cfg, prompt, n_new, dev,
+                    cache_dtype=torch.bfloat16, timed=on_card)
+    step_ms = sorted(run["step_ms"])
+    med = step_ms[len(step_ms) // 2]
+    # the highest percentile with 10 samples above it (n = n_new)
+    hi = max(len(step_ms) - 11, 0)
+    floor_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    chain = torch.argmax(run["steps"], -1).cpu()
+    agree = float(np.mean((chain == out_host).numpy()))
+    log(f"6c batch {b}, prompt {s}, {n_new} new, bf16 weights and cache: "
+        f"prefill {run['prefill_ms']:.2f} ms; decode step median "
+        f"{med:.3f} ms (p{100 * (hi + 1) // len(step_ms)} "
+        f"{step_ms[hi]:.3f}, min {step_ms[0]:.3f}, max {step_ms[-1]:.3f}, "
+        f"n {len(step_ms)}); "
+        f"decode {b * 1e3 / med:.1f} tok/s; greedy_generate "
+        f"{greedy_s * 1e3:.1f} ms for {b * n_new} tokens = "
+        f"{b * n_new / greedy_s:.1f} tok/s (prefill included); peak "
+        f"memory " + (f"{peak / 1e9:.3f} GB, {(peak - held) / 1e9:.3f} GB "
+                      f"above the {held / 1e9:.3f} GB held before it"
+                      if on_card else "not measured (CPU)") +
+        f"; byte floor {weight_bytes / 1e9:.3f} GB / "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s = {floor_ms:.3f} ms a step "
+        f"({floor_ms / med * 100:.1f}% of it); greedy_generate's tokens "
+        f"equal the timed chain's on {100 * agree:.1f}%")
+    if on_card:
+        lm_profiles(params, cfg, prompt, dev)
+    log_gc_turns("after the phases before it",
+                 lm_gc_turns(params, cfg, prompt, n_new, dev))
+
+    # decode logits vs the full forward over prompt + fed tokens
+    seq = torch.cat([prompt, run["fed"]], 1)
+    pos = torch.arange(s + n_new, device=dev)[None].expand(b, -1)
+    with torch.no_grad():
+        full_logits, _, _ = forward(params, cfg, seq, pos, device=dev)
+    rel_fwd = lm_rel(run["steps"], full_logits[:, s:])
+    fin = bool(torch.isfinite(run["steps"]).all()
+               and torch.isfinite(run["logits"]).all())
+    del full_logits, seq
+    # bf16 prefill vs the same weights upcast to f32 (f32 cache)
+    logits_bf16 = run["logits"]
+    del run
+    gc.collect()
+    params.float()
+    _, logits_f32 = prefill(params, cfg, prompt, max_len=s + n_new,
+                            cache_dtype=torch.float32, device=dev)
+    rel_f32 = lm_rel(logits_bf16, logits_f32)
+    log(f"6c gates: decode vs full forward rel {rel_fwd:.3e}, bf16 vs f32 "
+        f"weights prefill rel {rel_f32:.3e} (max|logit| "
+        f"{float(logits_f32.abs().max()):.3f}; gate {LM_REL_BF16}); "
+        f"finite {fin}")
+    if not fin or out_host.shape != (b, n_new) or rel_fwd > LM_REL_BF16 \
+            or rel_f32 > LM_REL_BF16:
+        raise AssertionError("6c failed its gates")
+    del params, logits_f32, logits_bf16
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    log_gc_turns("in a new process", lm_fresh_process(device, full))
+    launched = {k: v for k, v in kernels.launch_counts().items() if v}
+    if launched:
+        raise AssertionError(f"phase 6 launched the solver's kernels: "
+                             f"{launched}")
+    log("phase 6 launched none of the port's kernels (the LM stack reaches "
+        "no pl.pallas_call site)")
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+
 def kernel_row(name, launches, cuda_launches, err, ms, plain_ms, bnd, by,
                lib_ms) -> dict:
     """A row of the kernels line: ``launches`` are wrapper calls on the
@@ -2407,6 +3003,13 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     t0 = time.perf_counter()
     examples_phase(device, scale)
     log(f"phase 5: {time.perf_counter() - t0:.1f} s")
+
+    # -- 6. LM serving --------------------------------------------------------
+    log("== 6. LM serving: the ten smoke configs on the card against the "
+        "CPU (f32); mamba2-130m and qwen2.5-3b at their full configs")
+    t0 = time.perf_counter()
+    lm_phase(device, full=scale != "tiny")
+    log(f"phase 6: {time.perf_counter() - t0:.1f} s")
     return rows
 
 

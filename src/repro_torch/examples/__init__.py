@@ -1,4 +1,4 @@
-"""Twins of the reference's solver examples (``examples/*.py``), on the port.
+"""Twins of the reference's examples (``examples/*.py``), on the port.
 
 Each keeps its reference's sizes, seeds, printed rows and flags, adds
 ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain versions)
@@ -6,8 +6,8 @@ and returns what it prints from ``main(argv=None) -> dict``.  Run one as
 
     PYTHONPATH=src python -m repro_torch.examples.quickstart [--device cpu]
 
-with ``quickstart``, ``iccg_fem``, ``timestepping``, ``serve_solver`` or
-``rnn_as_trisolve``.
+with ``quickstart``, ``iccg_fem``, ``timestepping``, ``serve_solver``,
+``rnn_as_trisolve`` or ``serve_lm``.
 """
 
 

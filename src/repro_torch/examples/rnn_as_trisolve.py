@@ -14,9 +14,9 @@ chains is exactly a B-block, one-color HBMC instance: the secondary
 reordering interleaves the chains lane-major (b_s = T, w = B), turning T*B
 scalar steps into T rounds of B-wide vector work -- with bit-exact results
 (equivalent reordering).  Within a chain, the complementary trick is the
-*associative scan* (O(log T) depth), here a doubling scan written in
-PyTorch ops over the same ``combine`` as the reference's
-``jax.lax.associative_scan``.
+*associative scan* (O(log T) depth), here the doubling scan of the port's
+RG-LRU layer (``repro_torch.models.rglru.doubling_scan``, PyTorch ops over
+the same ``combine`` as the reference's ``jax.lax.associative_scan``).
 
     PYTHONPATH=src python -m repro_torch.examples.rnn_as_trisolve \
         [--device cpu]
@@ -30,27 +30,8 @@ import torch
 from ..core.sell import pack_steps
 from ..core.trisolve import DeviceTables, forward_solve
 from ..kernels.config import resolve_device
+from ..models.rglru import doubling_scan
 from . import device_parser
-
-
-def combine(c1, c2):
-    """The recurrence's associative operator: ``c1`` then ``c2``."""
-    a1, b1 = c1
-    a2, b2 = c2
-    return a1 * a2, a2 * b1 + b2
-
-
-def doubling_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Inclusive scan of ``combine`` along dim 1 in ceil(log2 T) levels
-    (Hillis-Steele): at level d every position t >= d combines the
-    partial result at t - d with its own.  Returns the h part."""
-    d = 1
-    while d < a.shape[1]:
-        a_new, b_new = combine((a[:, :-d], b[:, :-d]), (a[:, d:], b[:, d:]))
-        a = torch.cat([a[:, :d], a_new], dim=1)
-        b = torch.cat([b[:, :d], b_new], dim=1)
-        d *= 2
-    return b
 
 
 def _sync(device: torch.device) -> None:
@@ -118,8 +99,8 @@ def main(argv=None) -> dict:
     print("\nHBMC exposes *existing* independence (batch lanes) with exact "
           "equivalence; the associative scan creates intra-chain "
           "parallelism algebraically.  RecurrentGemma production code uses "
-          "both (see the reference's repro/models/rglru.py; the port's "
-          "models are not ported yet).")
+          "both (see repro_torch/models/rglru.py, whose prefill runs "
+          "this doubling scan).")
     return dict(h_seq=h_seq, h_hbmc=h_hbmc, h_scan=h_scan,
                 err_hbmc=err_hbmc, err_scan=err_scan, t_seq=t_seq,
                 t_hbmc=t_hbmc, t_scan=t_scan)

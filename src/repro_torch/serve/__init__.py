@@ -1,8 +1,9 @@
-"""Serving layer of the port: the solver service (``solver.py``) and its
-seeded fault injection (``faults.py``).
+"""Serving layer of the port: the solver service (``solver.py``), its
+seeded fault injection (``faults.py``) and the LM steps (``step.py``).
 
-Port of ``repro.serve`` without ``step`` (the LM stack's decode steps,
-which come with the port's LM slice).
+``step`` is not imported here -- it pulls in ``repro_torch.models``; import
+it explicitly (``from repro_torch.serve import step``), as in the
+reference's ``repro.serve``.
 """
 from .faults import FAULT_KINDS, FaultInjector, FaultPlan
 from .solver import (DEFAULT_COSTS, SERVICE_STATUSES, CacheStats, Completed,

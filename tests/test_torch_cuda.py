@@ -959,3 +959,74 @@ def test_nccl_mesh_plan_validates_and_proves_collectives(nccl_mesh):
                       lane_multiple=4, validate="full")
     assert check_plan_collectives(plan) == []
     assert check_plan_kernels(plan) == check_plan_kernels(plan, 8) == []
+
+
+# ---------------------------------------------------------------------------
+# the LM stack on the card (PyTorch ops; no kernel of the port)
+# ---------------------------------------------------------------------------
+
+def _lm_model_pair(cfg, cuda):
+    """One seeded f32 model drawn on the CPU, and its copy on the card."""
+    import copy
+
+    from repro_torch.models import init_params
+    cpu = init_params(cfg, 0, device="cpu", dtype=torch.float32)
+    return cpu, copy.deepcopy(cpu).to(cuda)
+
+
+def _lm_prompt(cfg, b, s, seed=1):
+    rng = np.random.default_rng(seed)
+    if cfg.takes_embeddings:
+        return torch.tensor(rng.normal(size=(b, s, cfg.d_model)) * 0.3,
+                            dtype=torch.float32)
+    return torch.tensor(rng.integers(0, cfg.vocab, size=(b, s)))
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mixtral-8x22b",
+                                  "recurrentgemma-2b", "stablelm-12b",
+                                  "qwen3-14b", "llama3-405b", "qwen2.5-3b",
+                                  "qwen2-vl-72b", "musicgen-medium",
+                                  "mamba2-130m"])
+def test_lm_smoke_config_on_the_card_matches_the_cpu(cuda, arch):
+    """Prefill logits and three teacher-forced decode steps (the CPU's
+    greedy tokens), f32, rel 1e-4; the default device is the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serve.step import prefill, serve_step
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_smoke_config(arch)
+    cpu, card = _lm_model_pair(cfg, cuda)
+    b, s = 2, 20
+    prompt = _lm_prompt(cfg, b, s)
+    c_cpu, lg_cpu = prefill(cpu, cfg, prompt, max_len=s + 3,
+                            cache_dtype=torch.float32, device="cpu")
+    c_card, lg_card = prefill(card, cfg, prompt, max_len=s + 3,
+                              cache_dtype=torch.float32)
+    assert lg_card.device.type == "cuda"
+    assert _rel(lg_card.cpu(), lg_cpu) < 1e-4
+    feed = _lm_prompt(cfg, b, 3, seed=2) if cfg.takes_embeddings else None
+    tok = None if feed is not None else \
+        torch.argmax(lg_cpu[:, -1], -1)[:, None]
+    for j in range(3):
+        if feed is not None:
+            tok = feed[:, j:j + 1]
+        a, c_cpu = serve_step(cpu, c_cpu, tok, s + j, cfg=cfg, device="cpu")
+        g, c_card = serve_step(card, c_card, tok, s + j, cfg=cfg)
+        assert _rel(g.cpu(), a) < 1e-4, j
+        if feed is None:
+            tok = torch.argmax(a, -1)[:, None]
+
+
+def test_lm_mamba2_130m_full_forward_on_the_card_matches_the_cpu(cuda):
+    """The full config (24 layers, d 768, vocab 50,280) in f32 over a
+    300-token prompt: a 256-token SSD chunk and a padded one."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward
+    cfg = get_config("mamba2-130m")
+    cpu, card = _lm_model_pair(cfg, cuda)
+    prompt = _lm_prompt(cfg, 2, 300)
+    pos = torch.arange(300)[None].expand(2, 300)
+    with torch.no_grad():
+        want, _, _ = forward(cpu, cfg, prompt, pos, device="cpu")
+        got, _, _ = forward(card, cfg, prompt, pos)
+    assert torch.isfinite(got).all()
+    assert _rel(got.cpu(), want) < 1e-4

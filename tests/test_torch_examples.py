@@ -1,4 +1,4 @@
-"""The twins of the solver examples (``repro_torch.examples``) against the
+"""The twins of the examples (``repro_torch.examples``) against the
 reference examples (``examples/*.py``), on the CPU.
 
 Each reference example is loaded by path and its ``main()`` run once per
@@ -27,8 +27,9 @@ import pytest
 from repro.core import build_plan as j_build_plan
 from repro.core import solve_iccg as j_solve_iccg
 from repro.core import solve_iccg_batched as j_solve_iccg_batched
+from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.examples import (iccg_fem, quickstart, rnn_as_trisolve,
-                                  serve_solver, timestepping)
+                                  serve_lm, serve_solver, timestepping)
 
 ROOT = Path(__file__).resolve().parents[1]
 RTOL = 1e-10
@@ -327,3 +328,59 @@ def test_twins_default_to_the_card(monkeypatch, twin):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _twin(twin.main, device=None)
+
+
+# ---------------------------------------------------------------------------
+# serve_lm
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_serve_lm_twin_runs_every_arch_on_the_cpu(arch):
+    """Token archs return (batch, new_tokens) ids, the ones
+    ``greedy_generate`` gives for the twin's weights and prompt; stub
+    frontends return the prefill logits' shape and skip decode."""
+    import torch
+    from repro_torch.models import init_params
+    from repro_torch.serve.step import greedy_generate
+    cfg = get_smoke_config(arch)
+    twin = _twin(serve_lm.main, ["--arch", arch, "--batch", "3",
+                                 "--prompt-len", "12", "--new-tokens", "5"])
+    assert twin["arch"] == cfg.name and twin["device"] == "cpu"
+    if cfg.takes_embeddings:
+        assert twin["tokens"] is None
+        assert twin["logits_shape"] == (3, 12, cfg.vocab)
+        return
+    toks = twin["tokens"]
+    assert toks.shape == (3, 5) and toks.min() >= 0 and \
+        toks.max() < cfg.vocab
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab, size=(3, 12))
+    want = greedy_generate(init_params(cfg, 0, device="cpu",
+                                       dtype=torch.float32),
+                           cfg, prompt, 5, max_len=17,
+                           cache_dtype=torch.float32, device="cpu")
+    np.testing.assert_array_equal(toks, want.numpy())
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "musicgen-medium"])
+def test_serve_lm_twin_prints_the_reference_shapes(arch):
+    """At the default flags the twin's ids (or prefill logits) have the
+    shape the reference example prints."""
+    out = _run(_load("serve_lm"), ["--arch", arch])
+    twin = _twin(serve_lm.main, ["--arch", arch])
+    if get_smoke_config(arch).takes_embeddings:
+        shape = re.search(r"prefill logits: \(([\d, ]+)\)", out)[1]
+        assert twin["logits_shape"] == tuple(int(v) for v in
+                                             shape.split(","))
+        assert "decode loop skipped" in out
+        return
+    ids = out.split("generated token ids:\n", 1)[1].split("tok/s")[0]
+    rows = re.findall(r"\[([\d\s]+)\]", ids)
+    assert twin["tokens"].shape == (len(rows), len(rows[0].split())) \
+        == (4, 24)
+
+
+def test_serve_lm_twin_defaults_to_the_card(monkeypatch):
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _twin(serve_lm.main, device=None)
