@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the HBMC-ICCG solver, and its LM serving
-path, on one NVIDIA GPU.
+and training paths, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -169,6 +169,29 @@ its last line:
    decode logits against the full forward over prompt and generated
    tokens, and the bf16 prefill against the same weights upcast to f32,
    each within 5e-2 x max|logit|.
+7. LM training (``repro_torch.train`` over ``repro_torch.models``; PyTorch
+   ops, no kernel of the port: the counters stay 0), TF32 off: 7a the
+   flash backward (the ``torch.autograd.Function`` of ``flash_core``) at
+   one qwen2.5-3b attention layer of the training shape (B 4, S 2,048, KV
+   2, G 8, hd 128; two query chunks) against autograd through the plain
+   forward loop, f32, rel 1e-4, and its forward / backward ms in f32 and
+   bf16; 7b one ``train_step`` of each of the ten smoke configs, f32,
+   drawn on the CPU and copied to the card: every leaf's gradient within
+   1e-4 x max(1, max|grad|) of the CPU's, the loss and grad norm within
+   rel 1e-4; 7c the twin of examples/train_lm.py through
+   ``launch.train.main`` (mamba2-130m's full config in bf16, batch 4 x
+   256, lr 1e-3), 30 steps with checkpoints every 10 in a temporary
+   directory, then ``LATEST`` pointed back at step 20 and a resume with the
+   same ``--steps``: its losses within rel 1e-5 of the straight run's
+   (bitwise printed), the last 5 losses' mean below the first 5's, ms a
+   step; 7d qwen2.5-3b at its full width (seed-0 bf16 weights drawn on the
+   card, f32 AdamW state, batch 4 x 2,048 from the synthetic pipeline,
+   remat on), 6 steps: the step-0 loss against the same weights upcast to
+   f32 within rel 5e-2, finite losses, a finite grad norm above 0, moved
+   parameters; ms a step (median of steps 2-6), tokens/s, model TFLOP a
+   step (6 x the parameters but the embedding x tokens) and their share of
+   989 TFLOP/s, peak ``max_memory_allocated``, and one profiled step by
+   kernel and by class.
 
 Its last lines: one JSON object with a row per kernel (``launches`` are
 wrapper calls on the main path, ``cuda_launches`` the CUDA launches they
@@ -2318,6 +2341,30 @@ def lm_profile(label: str, fn, reps: int, device) -> None:
         "device ms a call by kernel:")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"  {ms / reps:9.4f}  {name[:90]}")
+    classes: dict[str, float] = {}
+    for name, ms in by_name.items():
+        classes[kernel_class(name)] = classes.get(kernel_class(name), 0.0) \
+            + ms
+    log("  by class, device ms a call: " + ", ".join(
+        f"{c} {ms / reps:.1f}" for c, ms in
+        sorted(classes.items(), key=lambda kv: -kv[1])))
+
+
+def kernel_class(name: str) -> str:
+    """A device kernel's class, from its name: f32 GEMMs on FFMA (TF32
+    off), other (bf16) GEMMs, copies and casts, reductions, elementwise,
+    indexing, other."""
+    n = name.lower()
+    if any(t in n for t in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "f32 GEMM" if any(t in n for t in ("ffma", "sgemm",
+                                                  "f32f32")) else "GEMM"
+    for cls, tags in (("copy/cast", ("copy", "memcpy", "memset")),
+                      ("reduction", ("reduce", "softmax", "norm")),
+                      ("indexing", ("index", "scatter", "gather")),
+                      ("elementwise", ("elementwise",))):
+        if any(t in n for t in tags):
+            return cls
+    return "other"
 
 
 def lm_profiles(params, cfg, prompt, device, steps: int = 4) -> None:
@@ -2507,6 +2554,379 @@ def lm_phase(device: str, full: bool) -> None:
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 7: LM training
+# ---------------------------------------------------------------------------
+
+#: 7a: one attention layer of qwen2.5-3b's training shape (B, S, KV, G,
+#: hd), two query chunks of 1,024 over one KV chunk of 2,048
+FLASH_SHAPE = (4, 2048, 2, 8, 128)
+FLASH_REL_F32 = 1e-4        # the Function's grads vs autograd, f32 (7a)
+#: 7b: every smoke config, card against CPU (batch, sequence)
+TRAIN_SMOKE = (2, 32)
+TRAIN_REL_F32 = 1e-4        # 7b: per leaf, x max(1, max|grad|)
+#: 7c: the twin of examples/train_lm.py (mamba2-130m full config, bf16,
+#: lr 1e-3), 30 steps with checkpoints every 10, then a resume from 20
+TRAIN_MAMBA = dict(steps=30, batch=4, seq=256, every=10, resume_at=20)
+TRAIN_RESUME_REL = 1e-5     # 7c: resumed vs straight losses (rel)
+#: 7d: qwen2.5-3b at its full width, bf16, batch x seq, steps
+TRAIN_QWEN = ("qwen2.5-3b", 4, 2048, 6)
+TRAIN_REL_BF16 = 5e-2       # 7d: step-0 loss, bf16 vs f32 weights (rel)
+BF16_DENSE_FLOPS = 989e12   # H100 SXM, dense bf16, the published peak
+
+
+def cuda_sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def flash_bwd_check(device, full: bool) -> None:
+    """7a: ``flash_core``'s dq / dk / dv (the Function) against autograd
+    through the plain forward loop (``_flash_fwd_impl``), f32, at one
+    qwen2.5-3b attention layer of the training shape; then the Function's
+    forward and backward ms in f32 and bf16."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import flash_vjp
+    b, s, kv, g, hd = FLASH_SHAPE if full else (2, 64, 2, 2, 16)
+    qc, kc = s // 2, s
+    rng = np.random.default_rng(21)
+    q, do = (torch.tensor(rng.normal(size=(b, s, kv, g, hd)),
+                          dtype=torch.float32, device=device)
+             for _ in range(2))
+    k, v = (torch.tensor(rng.normal(size=(b, s, kv, hd)),
+                         dtype=torch.float32, device=device)
+            for _ in range(2))
+    pos = torch.arange(s, device=device)
+
+    def grads(fn, dt):
+        qkv = [t.to(dt).requires_grad_() for t in (q, k, v)]
+        out = fn(*qkv, pos, pos, None, qc, kc)
+        if isinstance(out, tuple):
+            out = out[0]
+        return torch.autograd.grad(out, qkv, do.to(dt))
+    got = grads(flash_vjp.flash_core, torch.float32)
+    want = grads(flash_vjp._flash_fwd_impl, torch.float32)
+    rels = [lm_rel(a, w) for a, w in zip(got, want)]
+    del want
+    times = {}
+    for dt in (torch.float32, torch.bfloat16):
+        qkv = [t.to(dt).requires_grad_() for t in (q, k, v)]
+        dod = do.to(dt)
+        out = flash_vjp.flash_core(*qkv, pos, pos, None, qc, kc)
+        times[dt] = (
+            time_ms(lambda: flash_vjp.flash_core(*qkv, pos, pos, None, qc,
+                                                 kc), 3, device),
+            time_ms(lambda: torch.autograd.grad(out, qkv, dod,
+                                                retain_graph=True), 3,
+                    device))
+        if dt == torch.bfloat16:
+            g16 = torch.autograd.grad(out, qkv, dod)
+            rel16 = [lm_rel(a, w) for a, w in zip(g16, got)]
+    flops = 4 * b * kv * g * s * s * hd            # q k^T and p v, causal x2
+    log(f"7a flash backward at B {b}, S {s}, KV {kv}, G {g}, hd {hd} "
+        f"(query chunks {s // qc} x {qc}, KV chunk {kc}): the Function's "
+        f"dq / dk / dv vs autograd through the plain forward, f32: rel "
+        f"{rels[0]:.2e} / {rels[1]:.2e} / {rels[2]:.2e} (gate "
+        f"{FLASH_REL_F32}); bf16 vs f32 rel {rel16[0]:.2e} / "
+        f"{rel16[1]:.2e} / {rel16[2]:.2e}; forward / backward ms (mean "
+        f"of 3, CUDA events): f32 {times[torch.float32][0]:.2f} / "
+        f"{times[torch.float32][1]:.2f}, bf16 "
+        f"{times[torch.bfloat16][0]:.2f} / {times[torch.bfloat16][1]:.2f} "
+        f"(forward products {flops / 1e9:.1f} GFLOP, the full square)")
+    if max(rels) > FLASH_REL_F32 or not all(
+            torch.isfinite(t).all() for t in got + g16):
+        raise AssertionError(f"7a: flash backward rel {rels}")
+
+
+def smoke_batch(cfg, seed: int, b: int, s: int) -> dict:
+    """A batch of the synthetic pipeline (embeddings for a stub
+    frontend)."""
+    from repro_torch.data.pipeline import (DataConfig, sample_batch,
+                                           sample_embedding_batch)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b, seed=seed)
+    if cfg.takes_embeddings:
+        return sample_embedding_batch(dcfg, 0, cfg.d_model)
+    return sample_batch(dcfg, 0)
+
+
+def train_card_vs_cpu(cfg, device) -> tuple[float, float, float]:
+    """7b: one seeded f32 model (drawn on the CPU) on the CPU and on the
+    card: ``loss_fn``'s gradients leaf by leaf within ``TRAIN_REL_F32`` x
+    max(1, max|grad|), then one ``train_step`` each, its loss and grad
+    norm within ``TRAIN_REL_F32``.  Returns the worst leaf's error and the
+    two metrics' relative errors."""
+    import copy
+
+    import torch
+
+    from repro_torch.models import init_params
+    from repro_torch.train import step as tstep
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    cpu = init_params(cfg, 0, device="cpu", dtype=torch.float32)
+    card = copy.deepcopy(cpu).to(device)
+    bt = smoke_batch(cfg, 5, *TRAIN_SMOKE)
+    grads = []
+    for model in (cpu, card):
+        dev = model.embed.device
+        total, _ = tstep.loss_fn(
+            model, cfg, torch.as_tensor(bt["inputs"], device=dev),
+            torch.as_tensor(bt["labels"], device=dev).long())
+        grads.append(tstep._grads(model, total))
+    worst = 0.0
+    for name, want in grads[0].items():
+        got = grads[1][name].cpu()
+        err = float((got - want).abs().max()) / max(
+            1.0, float(want.abs().max()))
+        worst = max(worst, err)
+        if not err <= TRAIN_REL_F32:
+            raise AssertionError(f"7b {cfg.name}: grad {name} rel {err:.2e}")
+    ocfg = AdamWConfig(lr=1e-3, total_steps=10, warmup_steps=1)
+    metrics = []
+    for model, dev in ((cpu, "cpu"), (card, device)):
+        _, m = tstep.train_step(model, init_opt_state(model), bt, cfg=cfg,
+                                opt_cfg=ocfg, device=dev)
+        metrics.append({k: float(v) for k, v in m.items()})
+    rel_loss, rel_gn = (abs(metrics[1][k] / metrics[0][k] - 1)
+                        for k in ("loss", "grad_norm"))
+    if rel_loss > TRAIN_REL_F32 or rel_gn > TRAIN_REL_F32:
+        raise AssertionError(f"7b {cfg.name}: loss rel {rel_loss:.2e}, "
+                             f"grad norm rel {rel_gn:.2e}")
+    return worst, rel_loss, rel_gn
+
+
+def timed_train_step(times: list):
+    """``train_step`` with each call's device-synchronised wall ms appended
+    to ``times`` (for ``launch.train``, whose loop calls it)."""
+    from repro_torch.train.step import train_step
+
+    def step(model, *args, device, **kw):
+        cuda_sync(device)
+        t0 = time.perf_counter()
+        out = train_step(model, *args, device=device, **kw)
+        cuda_sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return step
+
+
+def train_twin(device, full: bool) -> None:
+    """7c: the twin of examples/train_lm.py through ``launch.train.main``
+    (mamba2-130m's full config in bf16, lr 1e-3), 30 steps, checkpoints
+    every 10 in a temporary directory; then ``LATEST`` pointed back at the
+    step-20 file and a fresh ``main`` with ``--resume`` and the same
+    ``--steps`` runs steps 20-29.  Gates: the resumed losses equal the
+    straight run's within ``TRAIN_RESUME_REL`` (bitwise is printed), and the
+    last 5 losses' mean below the first 5's."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch import train as launch_train
+    c = TRAIN_MAMBA
+    with tempfile.TemporaryDirectory() as ck:
+        args = ["--arch", "mamba2-130m", "--steps", str(c["steps"]),
+                "--batch", str(c["batch"]), "--seq", str(c["seq"]),
+                "--lr", "1e-3", "--ckpt-dir", ck, "--ckpt-every",
+                str(c["every"]), "--log-every", "10", "--device",
+                str(device)]
+        if not full:
+            args[args.index("--batch") + 1] = "2"
+            args[args.index("--seq") + 1] = "32"
+            args.append("--smoke")
+        times: list[float] = []
+        real = launch_train.train_step
+        launch_train.train_step = timed_train_step(times)
+        try:
+            t0 = time.perf_counter()
+            straight = launch_train.main(args)
+            straight_s = time.perf_counter() - t0
+            files = sorted(f for f in os.listdir(ck) if f.endswith(".ckpt"))
+            size = os.path.getsize(os.path.join(ck, files[-1]))
+            with open(os.path.join(ck, "LATEST"), "w") as f:
+                f.write(f"step_{c['resume_at']:08d}.ckpt")
+            t0 = time.perf_counter()
+            resumed = launch_train.main(args + ["--resume"])
+            resumed_s = time.perf_counter() - t0
+        finally:
+            launch_train.train_step = real
+    want = straight[c["resume_at"]:]
+    bitwise = resumed == want
+    rel = max(abs(a / b - 1) for a, b in zip(resumed, want)) \
+        if len(resumed) == len(want) else float("inf")
+    first, last = np.mean(straight[:5]), np.mean(straight[-5:])
+    med = sorted(times[1:c["steps"]])[(c["steps"] - 1) // 2]
+    tokens = int(args[args.index("--batch") + 1]) * \
+        int(args[args.index("--seq") + 1])
+    log(f"7c train_lm twin ({'full' if full else 'smoke'} mamba2-130m, "
+        f"bf16, {args[args.index('--batch') + 1]} x "
+        f"{args[args.index('--seq') + 1]}, lr 1e-3): {c['steps']} steps in "
+        f"{straight_s:.1f} s ({len(files)} checkpoints of {size / 1e9:.3f} "
+        f"GB: {files}); ms a step median {med:.1f} (steps 2-{c['steps']}; "
+        f"min {min(times[1:c['steps']]):.1f}, max "
+        f"{max(times[1:c['steps']]):.1f}), {tokens * 1e3 / med:.0f} "
+        f"tokens/s; loss first 5 {first:.4f} -> last 5 {last:.4f}; resumed "
+        f"from step {c['resume_at']} in {resumed_s:.1f} s: {len(resumed)} "
+        f"steps, {'bitwise' if bitwise else 'not bitwise'} the straight "
+        f"run (max rel {rel:.2e}, gate {TRAIN_RESUME_REL})")
+    if len(resumed) != c["steps"] - c["resume_at"] or rel > TRAIN_RESUME_REL \
+            or not last < first or not np.isfinite(straight).all():
+        raise AssertionError(f"7c failed: straight {straight}, resumed "
+                             f"{resumed}")
+
+
+def train_qwen(device, full: bool) -> None:
+    """7d: qwen2.5-3b at its full width (hf:Qwen/Qwen2.5-3B), seed-0 bf16
+    weights drawn on the card, f32 AdamW state, batch 4 x 2,048 from the
+    synthetic pipeline, remat on, 6 steps.  Gates: the step-0 loss in bf16
+    against the same weights upcast to f32 (forward only) within
+    ``TRAIN_REL_BF16``; finite losses; a finite grad norm above 0; the
+    parameters moved."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, sample_batch
+    from repro_torch.models import init_params
+    from repro_torch.train import step as tstep
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    arch, b, s, n_steps = TRAIN_QWEN
+    cfg = get_config(arch) if full else get_smoke_config(arch)
+    if not full:
+        b, s = 2, 64
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    model = init_params(cfg, 0, device=dev)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b, seed=0)
+
+    def loss0(m):
+        bt = sample_batch(dcfg, 0)
+        with torch.no_grad():
+            _, met = tstep.loss_fn(
+                m, cfg, torch.as_tensor(bt["inputs"], device=dev),
+                torch.as_tensor(bt["labels"], device=dev).long())
+        return float(met["loss"])
+    l16 = loss0(model)
+    f32 = copy.deepcopy(model).float()
+    l32 = loss0(f32)
+    del f32
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    rel0 = abs(l16 / l32 - 1)
+
+    state = init_opt_state(model)
+    ocfg = AdamWConfig(lr=3e-4, total_steps=n_steps, warmup_steps=1)
+    watch = {n: p.detach().clone() for n, p in model.named_parameters()
+             if n in ("embed", "blocks.0.wq", "blocks.0.ln1.scale",
+                      "lm_head")}
+    held = None
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+    losses, gnorms, times = [], [], []
+    for i in range(n_steps):
+        bt = sample_batch(dcfg, i)
+        cuda_sync(dev)
+        t0 = time.perf_counter()
+        state, m = tstep.train_step(model, state, bt, cfg=cfg,
+                                    opt_cfg=ocfg, device=dev)
+        cuda_sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else None
+    moved = {n: not torch.equal(p, dict(model.named_parameters())[n])
+             for n, p in watch.items()}
+    med = sorted(times[1:])[len(times[1:]) // 2]
+    tokens = b * s
+    n_matmul = sum(p.numel() for n, p in model.named_parameters()
+                   if n != "embed")
+    tflop = 6 * n_matmul * tokens / 1e12
+    log(f"7d {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, vocab "
+        f"{cfg.vocab}; bf16 weights, f32 AdamW state, remat on) batch {b} x "
+        f"{s}: step-0 loss bf16 {l16:.5f} vs f32 weights {l32:.5f} (rel "
+        f"{rel0:.2e}, gate {TRAIN_REL_BF16}); losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; grad norms "
+        f"{', '.join(f'{x:.3f}' for x in gnorms)}; ms a step "
+        f"{', '.join(f'{x:.1f}' for x in times)}: median of steps 2-"
+        f"{n_steps} {med:.1f} ms, {tokens * 1e3 / med:.0f} tokens/s; "
+        f"{tflop:.2f} model TFLOP a step (6 x {n_matmul:,} matmul params x "
+        f"{tokens} tokens) = {tflop * 1e15 / med / 1e12:.1f} TFLOP/s, "
+        f"{100 * tflop * 1e15 / med / BF16_DENSE_FLOPS:.1f}% of "
+        f"{BF16_DENSE_FLOPS / 1e12:.0f} TFLOP/s dense bf16 (H100 SXM); peak "
+        "memory " + (f"{peak / 1e9:.3f} GB ({held / 1e9:.3f} GB held before "
+                     "the first step)" if on_card else
+                     "not measured (CPU)") +
+        f"; parameters moved: {moved}")
+    if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()
+            and min(gnorms) > 0 and all(moved.values())
+            and rel0 <= TRAIN_REL_BF16):
+        raise AssertionError("7d failed its gates")
+    if on_card:
+        i = n_steps
+
+        def one():
+            tstep.train_step(model, state, sample_batch(dcfg, i), cfg=cfg,
+                             opt_cfg=ocfg, device=dev)
+        lm_profile("one qwen2.5-3b train step", one, 1, dev)
+    del model, state, watch
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+
+def train_phase(device: str, full: bool) -> None:
+    """Phase 7: LM training (``repro_torch.train`` over
+    ``repro_torch.models``).  ``full=False`` (the CPU rehearsal) runs 7a at
+    a small shape and 7c / 7d at their smoke configs."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
+    dev = torch.device(device)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("allow_tf32 is on: the f32 parity checks need "
+                             "torch's default (off)")
+    gc.collect()
+    reset_counts()
+
+    t0 = time.perf_counter()
+    flash_bwd_check(dev, full)
+    log(f"7a: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    for arch in ARCH_IDS:
+        cfg = get_smoke_config(arch)
+        worst, rl, rg = train_card_vs_cpu(cfg, dev)
+        log(f"7b {arch:18s}: grads worst leaf {worst:.2e} (x max(1, "
+            f"max|grad|)), train_step loss rel {rl:.2e}, grad norm rel "
+            f"{rg:.2e}")
+    log(f"7b: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    train_twin(dev, full)
+    log(f"7c: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    train_qwen(dev, full)
+    log(f"7d: {time.perf_counter() - t0:.1f} s")
+    launched = {k: v for k, v in kernels.launch_counts().items() if v}
+    if launched:
+        raise AssertionError(f"phase 7 launched the solver's kernels: "
+                             f"{launched}")
+    log("phase 7 launched none of the port's kernels (the training path "
+        "reaches no pl.pallas_call site)")
 
 
 def kernel_row(name, launches, cuda_launches, err, ms, plain_ms, bnd, by,
@@ -3010,6 +3430,14 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     t0 = time.perf_counter()
     lm_phase(device, full=scale != "tiny")
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
+
+    # -- 7. LM training -------------------------------------------------------
+    log("== 7. LM training: the flash backward at qwen2.5-3b's shapes, the "
+        "ten smoke configs on the card against the CPU (f32), the train_lm "
+        "twin with a resume, and qwen2.5-3b at its full width")
+    t0 = time.perf_counter()
+    train_phase(device, full=scale != "tiny")
+    log(f"phase 7: {time.perf_counter() - t0:.1f} s")
     return rows
 
 

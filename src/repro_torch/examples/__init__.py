@@ -7,7 +7,7 @@ and returns what it prints from ``main(argv=None) -> dict``.  Run one as
     PYTHONPATH=src python -m repro_torch.examples.quickstart [--device cpu]
 
 with ``quickstart``, ``iccg_fem``, ``timestepping``, ``serve_solver``,
-``rnn_as_trisolve`` or ``serve_lm``.
+``rnn_as_trisolve``, ``serve_lm`` or ``train_lm``.
 """
 
 

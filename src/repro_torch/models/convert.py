@@ -7,7 +7,8 @@ its decode caches as a tuple per pattern slot stacked the same way.  The
 port keeps one module (and one cache dict) per layer, layer ``r * P + i``
 for repeat ``r`` of slot ``i``.  These functions take numpy arrays
 (``np.asarray`` of the reference's leaves) and give torch tensors on the
-CPU, or the reverse; nothing else in the port calls them.
+CPU, or the reverse (``params_to_reference`` also carries gradients keyed
+by parameter name); nothing else in the port calls them.
 """
 from __future__ import annotations
 
@@ -57,6 +58,39 @@ def params_from_reference(np_params: dict, cfg: ArchConfig) -> dict:
     if "lm_head" in np_params:
         state["lm_head"] = _tensor(np_params["lm_head"])
     return state
+
+
+def _nest(flat: dict) -> dict:
+    """``{"a.b": x}`` -> ``{"a": {"b": x}}``."""
+    out: dict = {}
+    for key, val in flat.items():
+        *head, last = key.split(".")
+        node = out
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = val
+    return out
+
+
+def params_to_reference(state: dict, cfg: ArchConfig) -> dict:
+    """The port's parameters (a ``state_dict``, or gradients keyed by
+    parameter name) -> the reference's pytree layout, numpy leaves, each
+    pattern slot's leaves stacked over repeats (the inverse of
+    ``params_from_reference``)."""
+    n_slots = len(cfg.block_pattern)
+    top = {k: _numpy(v) for k, v in state.items()
+           if not k.startswith("blocks.")}
+    slots = []
+    for i in range(n_slots):
+        prefix = f"blocks.{i}."
+        names = [k[len(prefix):] for k in state if k.startswith(prefix)]
+        slots.append(_nest({
+            name: np.stack([_numpy(state[f"blocks.{r * n_slots + i}.{name}"])
+                            for r in range(cfg.pattern_repeats)])
+            for name in names}))
+    out = _nest(top)
+    out["blocks"] = tuple(slots)
+    return out
 
 
 def cache_from_reference(ref_cache, cfg: ArchConfig) -> list[dict]:

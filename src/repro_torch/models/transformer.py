@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.config import resolve_device
 from .config import ArchConfig
@@ -222,24 +223,72 @@ class Model(nn.Module):
             self.lm_head = dense_init(gen, (cfg.d_model, cfg.vocab), dtype)
 
     def forward(self, inputs, positions, cache=None, cur_pos=None,
-                build_cache_len=None):
+                build_cache_len=None, remat: bool = True,
+                return_hidden: bool = False):
         cfg = self.cfg
         if cfg.takes_embeddings and inputs.ndim == 3:
             x = inputs
         else:
             x = self.embed[inputs]
+        n_slots = len(cfg.block_pattern)
+
+        def superblock(x, r):
+            """Repeat ``r`` of the pattern: (x, its caches, its aux summed
+            from its first block's, as the reference sums it from 0)."""
+            caches, aux = [], None
+            for layer in range(r * n_slots, (r + 1) * n_slots):
+                x, nc, a = self.blocks[layer](
+                    x, positions, None if cache is None else cache[layer],
+                    cur_pos, build_len=build_cache_len)
+                caches.append(nc)
+                aux = a if aux is None else aux + a
+            return x, caches, aux
+
         new_cache = []
         aux = _aux0(x)
-        for i, block in enumerate(self.blocks):
-            x, nc, a = block(x, positions, None if cache is None else
-                             cache[i], cur_pos, build_len=build_cache_len)
-            new_cache.append(nc)
-            aux = aux + a
+        if remat and cache is None and build_cache_len is None \
+                and torch.is_grad_enabled():
+            x, aux = self._remat_stack(superblock, x, aux)
+        else:
+            for r in range(cfg.pattern_repeats):
+                x, nc, a = superblock(x, r)
+                new_cache += nc
+                aux = aux + a
         x = self.ln_f(x)
         returns_cache = cache is not None or build_cache_len is not None
         new_cache = new_cache if returns_cache else None
+        if return_hidden:
+            return x, new_cache, aux
         head = self.embed.T if cfg.tie_embeddings else self.lm_head
         return x @ head, new_cache, aux
+
+    def _remat_stack(self, superblock, x, aux):
+        """The repeats with each superblock under ``checkpoint`` (only its
+        input is kept; the backward recomputes its inside), and with
+        ``remat_group = g > 1`` dividing the repeats, each group of g
+        superblocks under a second, outer checkpoint: live residuals
+        O(repeats / g + g) at the cost of one more forward per group."""
+        cfg = self.cfg
+
+        def one(x, r):
+            x, _, a = superblock(x, r)
+            return x, a
+
+        def ckpt(fn, *args):
+            return checkpoint(fn, *args, use_reentrant=False)
+
+        def run(x, aux, reps):
+            for r in reps:
+                x, a = ckpt(one, x, r)
+                aux = aux + a
+            return x, aux
+
+        g = cfg.remat_group
+        if g > 1 and cfg.pattern_repeats % g == 0:
+            for start in range(0, cfg.pattern_repeats, g):
+                x, aux = ckpt(run, x, aux, range(start, start + g))
+            return x, aux
+        return run(x, aux, range(cfg.pattern_repeats))
 
 
 def layer_kind(cfg: ArchConfig, layer: int) -> str:
@@ -297,15 +346,21 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cuda",
 
 def forward(params: Model, cfg: ArchConfig, inputs, positions, cache=None,
             cur_pos: int | None = None, build_cache_len: int | None = None,
-            *, device="cuda"):
+            *, remat: bool = True, return_hidden: bool = False,
+            device="cuda"):
     """inputs: (B, S) int tokens, or (B, S, d) embeddings for frontend archs;
     positions: (B, S), or (3, B, S) for M-RoPE.
 
     ``cache`` with ``cur_pos`` (an int): one decode token, the cache's
     attention tensors written in place.  ``build_cache_len``: token-parallel
     prefill, building a decode-ready cache of that capacity.
+    ``remat``: under autograd, with no cache, checkpoint each superblock
+    (one repeat of ``block_pattern``) and, where ``cfg.remat_group`` divides
+    the repeats, each group of them (``Model._remat_stack``).
+    ``return_hidden``: skip the LM head and return the final hidden states
+    (the training loss fuses the head with a chunked cross entropy).
     ``params`` must live on ``device``; ``inputs`` and ``positions`` are
-    moved there.  Returns (logits, new_cache, aux_loss).
+    moved there.  Returns (logits_or_hidden, new_cache, aux_loss).
     """
     dev = resolve_device(device)
     if cfg != params.cfg:
@@ -317,4 +372,5 @@ def forward(params: Model, cfg: ArchConfig, inputs, positions, cache=None,
     inputs = torch.as_tensor(inputs, device=dev)
     positions = torch.as_tensor(positions, device=dev)
     return params(inputs, positions, cache=cache, cur_pos=cur_pos,
-                  build_cache_len=build_cache_len)
+                  build_cache_len=build_cache_len, remat=remat,
+                  return_hidden=return_hidden)

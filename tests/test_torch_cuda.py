@@ -1030,3 +1030,64 @@ def test_lm_mamba2_130m_full_forward_on_the_card_matches_the_cpu(cuda):
         got, _, _ = forward(card, cfg, prompt, pos)
     assert torch.isfinite(got).all()
     assert _rel(got.cpu(), want) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# LM training on the card (PyTorch ops; no kernel of the port)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("window", [None, 24])
+def test_flash_backward_on_the_card_matches_the_cpu(cuda, window):
+    """``flash_core``'s dq / dk / dv (two query chunks, two KV chunks), f32,
+    rel 1e-5 of the CPU's."""
+    from repro_torch.models import flash_vjp
+    rng = np.random.default_rng(3)
+    q, do = (torch.tensor(rng.normal(size=(2, 128, 2, 4, 32)),
+                          dtype=torch.float32) for _ in range(2))
+    k, v = (torch.tensor(rng.normal(size=(2, 128, 2, 32)),
+                         dtype=torch.float32) for _ in range(2))
+    pos = torch.arange(128)
+    got = []
+    for dev in ("cpu", cuda):
+        qkv = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        out = flash_vjp.flash_core(*qkv, pos.to(dev), pos.to(dev), window,
+                                   64, 64)
+        got.append(torch.autograd.grad(out, qkv, do.to(dev)))
+    for want, g in zip(*got):
+        assert g.device.type == "cuda"
+        assert _rel(g.cpu(), want) < 1e-5
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "recurrentgemma-2b",
+                                  "qwen2-vl-72b", "mamba2-130m"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """One ``train_step`` of a smoke config from the same f32 weights (drawn
+    on the CPU): loss and grad norm rel 1e-4, and the new parameters within
+    2 lr of the CPU's (Adam's first step is about lr * sign(g), so a
+    gradient near 0 may take the other sign) and within 1e-4 x max(1,
+    max|p|) on 99% of each leaf's entries."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import (DataConfig, sample_batch,
+                                           sample_embedding_batch)
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.step import train_step
+    cfg = get_smoke_config(arch)
+    cpu, card = _lm_model_pair(cfg, cuda)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=2, seed=4)
+    bt = (sample_embedding_batch(dcfg, 0, cfg.d_model)
+          if cfg.takes_embeddings else sample_batch(dcfg, 0))
+    lr = 1e-3
+    ocfg = AdamWConfig(lr=lr, total_steps=10, warmup_steps=1)
+    _, m_cpu = train_step(cpu, init_opt_state(cpu), bt, cfg=cfg,
+                          opt_cfg=ocfg, device="cpu")
+    _, m_card = train_step(card, init_opt_state(card), bt, cfg=cfg,
+                           opt_cfg=ocfg)
+    assert m_card["loss"].device.type == "cuda"
+    for key in ("loss", "grad_norm"):
+        assert abs(float(m_card[key]) / float(m_cpu[key]) - 1) < 1e-4, key
+    for (name, a), b in zip(cpu.named_parameters(), card.parameters()):
+        a = a.detach()
+        d = (b.detach().cpu() - a).abs()
+        assert float(d.max()) <= 2 * lr + 1e-6, name
+        tight = d <= 1e-4 * max(1.0, float(a.abs().max()))
+        assert float(tight.float().mean()) >= 0.99, name
