@@ -2929,6 +2929,410 @@ def train_phase(device: str, full: bool) -> None:
         "reaches no pl.pallas_call site)")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the LM stack on a mesh
+# ---------------------------------------------------------------------------
+
+#: 8a: olmoe-1b-7b at its full config (arXiv:2409.02060), bf16, prefill of
+#: batch x prompt tokens, sharded (the explicit-dispatch MoE) and not
+MESH_PREFILL = ("olmoe-1b-7b", 4, 1536)
+MESH_LOGIT_REL = 5e-2       # 8a: x max|logit|, bf16
+#: 8b: olmoe-1b-7b at its full width, cut to 4 layers (memory), bf16
+#: weights, f32 AdamW state, batch x seq, remat on
+MESH_TRAIN = ("olmoe-1b-7b", 4, 4, 2048)
+MESH_LOSS_REL, MESH_GRAD_REL = 1e-3, 5e-2   # 8b: loss rel; x max|g| a leaf
+#: 8e: dry-run cells (arch, shape), each in a process of its own
+MESH_DRYRUN = (("qwen2.5-3b", "train_4k"), ("olmoe-1b-7b", "train_4k"),
+               ("qwen2.5-3b", "decode_32k"))
+
+
+def shard_model(model, mesh):
+    """``model``'s parameters as DTensors placed by ``params_shardings``."""
+    from repro_torch import dist as D
+    return D.distribute_params(model, D.params_shardings(model, mesh))
+
+
+def shard_batch(mesh, t):
+    """``t`` with its batch dim placed by ``batch_partition_spec``."""
+    import torch
+
+    from repro_torch import dist as D
+    t = torch.as_tensor(t)
+    return D.distribute(t, D.NamedSharding(
+        mesh, D.batch_partition_spec(mesh, t.shape[0], t.ndim)))
+
+
+def whole(t):
+    """A DTensor's whole value (a plain tensor as it is)."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def mesh_prefill(mesh, device, full: bool) -> None:
+    """8a: olmoe-1b-7b's prefill at its full config, unsharded and with the
+    parameters and prompt placed on the mesh (``moe_apply_shardmap``
+    engaged in every layer): logits within ``MESH_LOGIT_REL`` x max|logit|
+    of each other; each prefill's ms."""
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.dist import use_mesh
+    from repro_torch.models import init_params, moe_shardmap
+    from repro_torch.serve.step import prefill
+    arch, b, s = MESH_PREFILL
+    cfg = get_config(arch) if full else get_smoke_config(arch)
+    if not full:
+        b, s = 2, 40
+    dtype = torch.bfloat16 if full else torch.float32
+    model = init_params(cfg, 0, device=device, dtype=dtype)
+    prompt = lm_prompt(cfg, 31, b, s).to(device)
+    times, logits = [], []
+    for sharded in (False, True):
+        if sharded:
+            shard_model(model, mesh)
+        moe_shardmap.reset_engaged_count()
+        for _ in range(2):                   # the second call is timed
+            cuda_sync(device)
+            t0 = time.perf_counter()
+            if sharded:
+                with use_mesh(mesh):
+                    _, lg = prefill(model, cfg, shard_batch(mesh, prompt),
+                                    max_len=s, device=device)
+            else:
+                _, lg = prefill(model, cfg, prompt, max_len=s,
+                                device=device)
+            cuda_sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+        logits.append(whole(lg))
+        engaged = moe_shardmap.engaged_count()
+        if engaged != (2 * cfg.n_layers if sharded else 0):
+            raise AssertionError(f"8a: the explicit-dispatch MoE engaged "
+                                 f"{engaged} times (sharded={sharded})")
+    rel = lm_rel(logits[1], logits[0])
+    n = sum(p.numel() for p in model.parameters())
+    log(f"8a {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_experts} experts top-{cfg.moe_top_k}, vocab {cfg.vocab}; "
+        f"{n:,} parameters, {dtype}) prefill {b} x {s}: unsharded "
+        f"{times[0]:.1f} ms, sharded on {tuple(mesh.mesh.shape)} "
+        f"{times[1]:.1f} ms; logits rel {rel:.2e} (gate {MESH_LOGIT_REL} "
+        f"x max|logit| = {float(logits[0].float().abs().max()):.3f}); "
+        f"moe_apply_shardmap engaged {2 * cfg.n_layers} times in the two "
+        "sharded calls")
+    if not rel <= MESH_LOGIT_REL:
+        raise AssertionError(f"8a: sharded prefill logits rel {rel:.3e}")
+    del model, logits, lg
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _loss_grads(model, cfg, bt, mesh=None):
+    """``loss_fn``'s loss and gradients (whole, by name) of ``model`` on
+    batch ``bt``; on ``mesh`` the batch is placed and the call runs under
+    ``use_mesh``."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.dist import use_mesh
+    from repro_torch.train import step as tstep
+    dev = model.embed.device
+    inputs = torch.as_tensor(bt["inputs"], device=dev)
+    labels = torch.as_tensor(bt["labels"], device=dev).long()
+    if mesh is not None:
+        inputs, labels = shard_batch(mesh, inputs), shard_batch(mesh, labels)
+    with use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+        total, m = tstep.loss_fn(model, cfg, inputs, labels)
+        grads = tstep._grads(model, total)
+    return float(whole(m["loss"])), {n: whole(g) for n, g in grads.items()}
+
+
+def _timed_step(model, cfg, bt, state, ocfg, device, mesh=None):
+    """One ``train_step`` (under ``use_mesh`` with the batch placed on
+    ``mesh``); returns (its metrics as floats, ms)."""
+    import contextlib
+
+    from repro_torch.dist import use_mesh
+    from repro_torch.train import step as tstep
+    if mesh is not None:
+        bt = {k: shard_batch(mesh, v) for k, v in bt.items()}
+    cuda_sync(device)
+    t0 = time.perf_counter()
+    with use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+        _, m = tstep.train_step(model, state, bt, cfg=cfg, opt_cfg=ocfg,
+                                device=device)
+    cuda_sync(device)
+    return ({k: float(v) for k, v in m.items()},
+            (time.perf_counter() - t0) * 1e3)
+
+
+def mesh_train(mesh, device, full: bool) -> None:
+    """8b: olmoe-1b-7b at its full width cut to 4 layers, bf16 weights,
+    f32 AdamW state, remat: ``loss_fn`` and its gradients, then one
+    ``train_step``, unsharded and then from the same seed-0 weights placed
+    on the mesh.  Gates: loss rel ``MESH_LOSS_REL``, every gradient leaf
+    within ``MESH_GRAD_REL`` x its max|g|, the explicit dispatch engaged;
+    ms a step of both, peak memory."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, sample_batch
+    from repro_torch.models import init_params, moe_shardmap
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    arch, layers, b, s = MESH_TRAIN
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers) if full \
+        else get_smoke_config(arch)
+    if not full:
+        b, s = 2, 64
+    dtype = torch.bfloat16 if full else torch.float32
+    on_card = torch.device(device).type == "cuda"
+    bt = sample_batch(DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b,
+                                 seed=0), 0)
+    ocfg = AdamWConfig(lr=3e-4, total_steps=10, warmup_steps=1)
+    got = {}
+    for sharded in (False, True):
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        model = init_params(cfg, 0, device=device, dtype=dtype)
+        on = mesh if sharded else None
+        if sharded:
+            shard_model(model, mesh)
+        moe_shardmap.reset_engaged_count()
+        loss, grads = _loss_grads(model, cfg, bt, on)
+        engaged = moe_shardmap.engaged_count()
+        if not sharded:
+            grads = {n: g.cpu() for n, g in grads.items()}
+        metrics, ms = _timed_step(model, cfg, bt, init_opt_state(model),
+                                  ocfg, device, on)
+        peak = torch.cuda.max_memory_allocated(device) if on_card else None
+        got[sharded] = (loss, grads, metrics, ms, peak, engaged)
+        del model
+    n = sum(g.numel() for g in got[False][1].values())
+    worst, worst_name = -1.0, None
+    for name, want in got[False][1].items():
+        g = got[True][1][name].cpu().float()
+        err = float((g - want.float()).abs().max()) / max(
+            float(want.float().abs().max()), 1e-30)
+        if err > worst:
+            worst, worst_name = err, name
+    rel_loss = abs(got[True][0] / got[False][0] - 1)
+    fmt = (lambda p: f"{p / 1e9:.3f} GB" if p is not None else "n/a (CPU)")
+    log(f"8b {cfg.name} cut to {cfg.n_layers} layers (d {cfg.d_model}, "
+        f"{cfg.n_experts} experts; {n:,} parameters, {dtype} weights, f32 "
+        f"AdamW state, remat) batch {b} x {s}: loss {got[False][0]:.5f} / "
+        f"sharded {got[True][0]:.5f} (rel {rel_loss:.2e}, gate "
+        f"{MESH_LOSS_REL}); worst gradient leaf {worst_name} {worst:.2e} "
+        f"of its max|g| (gate {MESH_GRAD_REL}); train_step "
+        f"{got[False][3]:.1f} ms / sharded {got[True][3]:.1f} ms (loss "
+        f"{got[False][2]['loss']:.5f} / {got[True][2]['loss']:.5f}, grad "
+        f"norm {got[False][2]['grad_norm']:.4f} / "
+        f"{got[True][2]['grad_norm']:.4f}); peak memory {fmt(got[False][4])}"
+        f" / {fmt(got[True][4])}; moe_apply_shardmap engaged "
+        f"{got[True][5]} times in the sharded loss and gradient (forward "
+        "and remat recompute), 0 unsharded")
+    if not (rel_loss <= MESH_LOSS_REL and worst <= MESH_GRAD_REL
+            and got[True][5] > 0 and got[False][5] == 0):
+        raise AssertionError("8b failed its gates")
+    del got
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+
+def mesh_smoke(mesh, device) -> None:
+    """8c: each smoke config (f32) on the card, ``loss_fn``'s gradients and
+    one ``train_step`` unsharded and placed on the mesh: every leaf within
+    ``TRAIN_REL_F32`` x max(1, max|g|), the loss and grad norm within rel
+    ``TRAIN_REL_F32`` (phase 7b's gates)."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    ocfg = AdamWConfig(lr=1e-3, total_steps=10, warmup_steps=1)
+    for arch in ARCH_IDS:
+        cfg = get_smoke_config(arch)
+        cpu = init_params(cfg, 0, device="cpu", dtype=torch.float32)
+        bt = smoke_batch(cfg, 5, *TRAIN_SMOKE)
+        res = []
+        for sharded in (False, True):
+            model = copy.deepcopy(cpu).to(device)
+            on = mesh if sharded else None
+            if sharded:
+                shard_model(model, mesh)
+            loss, grads = _loss_grads(model, cfg, bt, on)
+            metrics, _ = _timed_step(model, cfg, bt, init_opt_state(model),
+                                     ocfg, device, on)
+            res.append((grads, metrics))
+        worst = max(float((res[1][0][n] - g).abs().max())
+                    / max(1.0, float(g.abs().max()))
+                    for n, g in res[0][0].items())
+        rl, rg = (abs(res[1][1][k] / res[0][1][k] - 1)
+                  for k in ("loss", "grad_norm"))
+        log(f"8c {arch:18s}: grads worst leaf {worst:.2e} (x max(1, "
+            f"max|grad|)), train_step loss rel {rl:.2e}, grad norm rel "
+            f"{rg:.2e}")
+        if not (worst <= TRAIN_REL_F32 and rl <= TRAIN_REL_F32
+                and rg <= TRAIN_REL_F32):
+            raise AssertionError(f"8c {arch} failed its gates")
+
+
+def mesh_reshard(device, dev_type: str) -> None:
+    """8d: a smoke model's parameters and AdamW state placed on the (1, 1)
+    ("data", "model") mesh, saved, and loaded onto a (1,) ("data",) mesh
+    with that mesh's placements (``load_checkpoint(shardings=)``): every
+    leaf bitwise the saved one."""
+    import tempfile
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import dist as D
+    from repro_torch.ckpt.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import init_opt_state
+    mesh2 = init_device_mesh(dev_type, (1, 1),
+                             mesh_dim_names=("data", "model"))
+    mesh1 = init_device_mesh(dev_type, (1,), mesh_dim_names=("data",))
+    cfg = get_smoke_config("olmoe-1b-7b")
+    model = shard_model(init_params(cfg, 0, device=device), mesh2)
+    state = init_opt_state(model)
+    for n in state.m:
+        state.m[n].add_(0.5)
+        state.v[n].add_(0.25)
+    tree = (dict(model.named_parameters()), state)
+    sh = D.params_shardings(model, mesh1)
+    like = (dict(model.named_parameters()), state)
+    shardings = (sh, type(state)(step=None, m=sh, v=sh))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        f = save_checkpoint(tmp, tree, step=7)
+        t1 = time.perf_counter()
+        (params, st), step = load_checkpoint(f, like, device=device,
+                                             shardings=shardings)
+        t2 = time.perf_counter()
+    same = [n for n, p in params.items()
+            if torch.equal(whole(p), whole(tree[0][n]))
+            and p.device_mesh == mesh1 and torch.equal(whole(st.m[n]),
+                                                      whole(state.m[n]))]
+    log(f"8d reshard (1, 1) -> (1,): {len(params)} parameters and their "
+        f"AdamW moments, step {step}; bitwise {len(same)} of "
+        f"{len(params)}; save {t1 - t0:.2f} s, load {t2 - t1:.2f} s")
+    if len(same) != len(params) or step != 7:
+        raise AssertionError("8d: the resharded checkpoint differs")
+
+
+def mesh_dryrun(full: bool) -> None:
+    """8e: ``python -m repro_torch.launch.dryrun`` for ``MESH_DRYRUN``'s
+    cells, each in a process of its own (a fake process group of 256
+    ranks; host only), all started together: each cell's terms and
+    seconds, and ``model_flops_per_device`` = ``cfg.model_flops`` /
+    chips."""
+    import tempfile
+
+    from repro_torch.configs import SHAPES, get_config
+    todo = MESH_DRYRUN if full else (("mamba2-130m", "decode_32k"),)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", tmp], env=env, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for arch, shape in todo]
+        try:
+            outs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for (arch, shape), p, out in zip(todo, procs, outs):
+            if p.returncode != 0:
+                raise AssertionError(f"8e dry-run {arch} x {shape} exited "
+                                     f"{p.returncode}:\n{out[-3000:]}")
+            terms = json.load(open(f"{tmp}/{arch}__{shape}__single.json"))
+            spec = SHAPES[shape]
+            mf = get_config(arch).model_flops(
+                spec.global_batch, spec.seq_len, decode=spec.kind == "decode")
+            if spec.kind == "prefill":
+                mf /= 3.0
+            if terms["model_flops_per_device"] != mf / terms["chips"]:
+                raise AssertionError(f"8e {arch} x {shape}: model FLOPs a "
+                                     "device differ from cfg.model_flops")
+            log(f"8e {arch} x {shape} on {terms['mesh_axes']}: "
+                f"{terms['compile_seconds']:.1f} s of op recording; FLOPs "
+                f"{terms['flops_per_device']:.4g}, bytes "
+                f"{terms['bytes_per_device']:.4g}, collective wire bytes "
+                f"{terms['collective_bytes_per_device']:.4g} a device "
+                f"({terms['collective_counts']}); t_compute "
+                f"{terms['t_compute_s']:.4g} s, t_memory "
+                f"{terms['t_memory_s']:.4g} s, t_collective "
+                f"{terms['t_collective_s']:.4g} s, dominant "
+                f"{terms['dominant']}; model FLOPs a device "
+                f"{terms['model_flops_per_device']:.4g} (= cfg.model_flops "
+                f"/ {terms['chips']}), useful ratio "
+                f"{terms['useful_flops_ratio']:.3f}, roofline fraction "
+                f"{terms['roofline_fraction']:.4f}; arguments "
+                f"{terms['argument_size_in_bytes'] / 1e9:.3f} GB a device")
+        log(f"8e: {len(todo)} cells in {wall:.1f} s wall, in parallel")
+
+
+def mesh_lm_phase(device: str, full: bool) -> None:
+    """Phase 8: the LM stack on a (1, 1) ("data", "model") mesh over a
+    one-rank process group (NCCL on the card, gloo on the CPU).
+    ``full=False`` (the CPU rehearsal) runs 8a / 8b at smoke configs and
+    8e on one decode cell."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import make_host_mesh
+    dev = torch.device(device)
+    dev_type = dev.type
+    gc.collect()
+    reset_counts()
+    if dev_type == "cuda":
+        # the rank's card, selected before the mesh is made
+        torch.cuda.set_device(torch.cuda.current_device())
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl" if dev_type == "cuda" else "gloo",
+                                init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1)
+        try:
+            mesh = make_host_mesh(dev_type)
+            log(f"process group {dist.get_backend()}, world size "
+                f"{dist.get_world_size()}; mesh {mesh}")
+            for name, fn in (("8a", lambda: mesh_prefill(mesh, dev, full)),
+                             ("8b", lambda: mesh_train(mesh, dev, full)),
+                             ("8c", lambda: mesh_smoke(mesh, dev)),
+                             ("8d", lambda: mesh_reshard(dev, dev_type))):
+                t0 = time.perf_counter()
+                fn()
+                log(f"{name}: {time.perf_counter() - t0:.1f} s")
+        finally:
+            dist.destroy_process_group()
+    t0 = time.perf_counter()
+    mesh_dryrun(full)
+    log(f"8e: {time.perf_counter() - t0:.1f} s")
+    launched = {k: v for k, v in kernels.launch_counts().items() if v}
+    if launched:
+        raise AssertionError(f"phase 8 launched the solver's kernels: "
+                             f"{launched}")
+    log("phase 8 launched none of the port's kernels (the LM stack on a "
+        "mesh reaches no pl.pallas_call site)")
+
+
 def kernel_row(name, launches, cuda_launches, err, ms, plain_ms, bnd, by,
                lib_ms) -> dict:
     """A row of the kernels line: ``launches`` are wrapper calls on the
@@ -3332,6 +3736,18 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
         max(reps // 5, 1), dev)
     sw_lib_ms, sw_b_lib_ms = library_sweep_ms(tf, qs, qsb, y_sw, y_sw_b,
                                               reps, dev)
+    # the library's apply (B1 / B3's yardstick): SpSV on L, then on L^T
+    # (SpSM at B = 8) -- the index plan's two sweeps of the same factor
+    tb = plan_idx._precond.kernel.bwd
+    bw_lib_ms, bw_b_lib_ms = library_sweep_ms(
+        tb, qs, qsb, hbmc_trisolve(tb.cols, tb.vals, tb.dinv, qs,
+                                   segments=tb.segments),
+        hbmc_trisolve_batched(tb.cols, tb.vals, tb.dinv, qsb,
+                              segments=tb.segments), reps, dev)
+    apply_lib_ms = (None if None in (sw_lib_ms, bw_lib_ms)
+                    else sw_lib_ms + bw_lib_ms)
+    apply_b_lib_ms = (None if None in (sw_b_lib_ms, bw_b_lib_ms)
+                      else sw_b_lib_ms + bw_b_lib_ms)
     sw_bnd, sw_by = tri_bound(tf, qs)
     sw_b_bnd, sw_b_by = tri_bound(tf, qsb)
     # one HBMC -> round-major permutation of an (n, 8) block: the port's
@@ -3352,6 +3768,11 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
         f"{trisolve_bytes(tf, qs) / 1e6:.1f} MB; {sw_launches} CUDA "
         f"launches per call)  "
         f"library {fmt_ms(sw_lib_ms)}")
+    log(f"library apply (SpSV on L then on L^T, the index plan's two "
+        f"sweeps; B1's yardstick): {fmt_ms(sw_lib_ms)} + {fmt_ms(bw_lib_ms)}"
+        f" = {fmt_ms(apply_lib_ms)} ms; at B={BATCH} (SpSM, B3's): "
+        f"{fmt_ms(sw_b_lib_ms)} + {fmt_ms(bw_b_lib_ms)} = "
+        f"{fmt_ms(apply_b_lib_ms)} ms")
     log(f"index sweep B6, B={BATCH}: kernel {sw_b_ms:.4f}  plain "
         f"{sw_b_plain_ms:.4f}  bound {sw_b_bnd:.4f} ({sw_b_by}, "
         f"{trisolve_bytes(tf, qsb) / 1e6:.1f} MB; {sw_b_launches[0]} CUDA "
@@ -3382,14 +3803,15 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     rows = [
         kernel_row("hbmc_trisolve_fused", counts["hbmc_trisolve_fused"],
                    cuda_main["hbmc_trisolve_fused"], err_tri, tri_ms,
-                   tri_plain_ms, tri_bnd, tri_by, None),
+                   tri_plain_ms, tri_bnd, tri_by, apply_lib_ms),
         kernel_row("sell_spmv", counts["sell_spmv"], cuda_main["sell_spmv"],
                    err_spmv, spmv_ms, spmv_plain_ms, spmv_bnd, spmv_by,
                    spmv_lib_ms),
         kernel_row("hbmc_trisolve_fused_batched",
                    counts_b["hbmc_trisolve_fused_batched"],
                    cuda_b["hbmc_trisolve_fused_batched"], err_tri_b,
-                   tri_b_ms, tri_b_plain_ms, tri_b_bnd, tri_b_by, None),
+                   tri_b_ms, tri_b_plain_ms, tri_b_bnd, tri_b_by,
+                   apply_b_lib_ms),
         kernel_row("sell_spmv_batched", counts_b["sell_spmv_batched"],
                    cuda_b["sell_spmv_batched"], err_spmv_b, spmv_b_ms,
                    spmv_b_plain_ms, spmv_b_bnd, spmv_b_by, spmv_b_lib_ms),
@@ -3438,6 +3860,14 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     t0 = time.perf_counter()
     train_phase(device, full=scale != "tiny")
     log(f"phase 7: {time.perf_counter() - t0:.1f} s")
+
+    # -- 8. the LM stack on a mesh --------------------------------------------
+    log("== 8. the LM stack on a (1, 1) mesh: olmoe-1b-7b prefill and "
+        "training sharded vs unsharded, the smoke configs, a reshard, and "
+        "the dry-run")
+    t0 = time.perf_counter()
+    mesh_lm_phase(device, full=scale != "tiny")
+    log(f"phase 8: {time.perf_counter() - t0:.1f} s")
     return rows
 
 

@@ -7,8 +7,10 @@ The reference's contract, kept:
     never corrupts the latest checkpoint;
   * **self-verifying** -- every leaf carries a crc32 of its bytes; a load
     fails loudly on bit rot;
-  * **full logical arrays** -- each leaf is saved whole, so a checkpoint
-    restores onto any device (``load_checkpoint(..., device=)``);
+  * **full logical arrays** -- each leaf is saved whole (a DTensor leaf
+    is gathered first), so a checkpoint restores onto any device
+    (``load_checkpoint(..., device=)``) or onto a mesh of another shape
+    (``load_checkpoint(..., shardings=)``: the elastic reshard);
   * **resumable stream** -- the data pipeline is stateless-indexed, so the
     step alone resumes the exact data order.
 
@@ -25,6 +27,7 @@ key is its path, joined with ``.``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import struct
@@ -32,7 +35,10 @@ import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from ..dist.sharding import distribute
 from ..kernels.config import resolve_device
 
 _MAGIC = b"RPTCKPT1"
@@ -63,6 +69,8 @@ def _unflatten(like, leaves):
 
 
 def _leaf_bytes(leaf: torch.Tensor) -> tuple[str, list[int], bytes]:
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     t = leaf.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
         return "bfloat16", list(t.shape), t.view(torch.int16).numpy() \
@@ -73,26 +81,37 @@ def _leaf_bytes(leaf: torch.Tensor) -> tuple[str, list[int], bytes]:
 
 def save_checkpoint(path: str, tree, step: int) -> str:
     """Write ``tree`` at ``step`` into directory ``path``; returns the
-    file's path."""
+    file's path.  With DTensor leaves every rank must call it (each leaf is
+    gathered); rank 0 writes, and every rank returns once the file is
+    there."""
+    sharded = any(isinstance(leaf, DTensor) for _, leaf in _flatten(tree))
+    writer = not (sharded and dist.is_initialized()) or dist.get_rank() == 0
     os.makedirs(path, exist_ok=True)
     tmp = os.path.join(path, f"tmp.{step}")
     final = os.path.join(path, f"step_{step:08d}.ckpt")
     index = {"step": int(step), "leaves": {}}
-    with open(tmp, "wb") as f:
-        f.write(_MAGIC)
+    with open(tmp, "wb") if writer else contextlib.nullcontext() as f:
+        if writer:
+            f.write(_MAGIC)
         for key, leaf in _flatten(tree):
             dtype, shape, buf = _leaf_bytes(leaf)
+            if not writer:
+                continue
             index["leaves"][key] = {"dtype": dtype, "shape": shape,
                                     "crc": zlib.crc32(buf),
                                     "offset": f.tell(), "nbytes": len(buf)}
             f.write(buf)
-        blob = json.dumps(index).encode()
-        f.write(blob)
-        f.write(struct.pack("<Q", len(blob)))
-        f.flush()
-        os.fsync(f.fileno())
-    os.rename(tmp, final)
-    _write_latest(path, final)
+        if writer:
+            blob = json.dumps(index).encode()
+            f.write(blob)
+            f.write(struct.pack("<Q", len(blob)))
+            f.flush()
+            os.fsync(f.fileno())
+    if writer:
+        os.rename(tmp, final)
+        _write_latest(path, final)
+    if sharded and dist.is_initialized():
+        dist.barrier()
     return final
 
 
@@ -114,13 +133,19 @@ def latest_checkpoint(path: str) -> str | None:
     return full if os.path.exists(full) else None
 
 
-def load_checkpoint(file: str, like_tree, device="cuda") -> tuple[object,
-                                                                   int]:
+def load_checkpoint(file: str, like_tree, device="cuda", shardings=None
+                    ) -> tuple[object, int]:
     """Restore into the structure of ``like_tree`` (its values are
     ignored), each leaf a tensor on ``device`` in the dtype and shape it
-    was saved with.  Returns (tree, step); raises ``IOError`` on a crc
-    mismatch and ``KeyError`` on a missing leaf."""
+    was saved with.  ``shardings``: a tree of the same structure whose
+    leaves are ``dist.NamedSharding``s (or None: a plain tensor); each leaf
+    is then placed on its (possibly different) mesh as a DTensor -- the
+    elastic-rescale path.
+    Returns (tree, step); raises ``IOError`` on a crc mismatch and
+    ``KeyError`` on a missing leaf."""
     dev = resolve_device(device)
+    shard_leaves = (None if shardings is None
+                    else iter([sh for _, sh in _flatten(shardings)]))
     with open(file, "rb") as f:
         if f.read(len(_MAGIC)) != _MAGIC:
             raise IOError(f"{file} is not a checkpoint")
@@ -141,5 +166,7 @@ def load_checkpoint(file: str, like_tree, device="cuda") -> tuple[object,
             bf16 = rec["dtype"] == "bfloat16"
             arr = np.frombuffer(buf, np.int16 if bf16 else rec["dtype"])
             t = torch.from_numpy(arr.copy()).reshape(rec["shape"])
-            out.append((t.view(torch.bfloat16) if bf16 else t).to(dev))
+            t = (t.view(torch.bfloat16) if bf16 else t).to(dev)
+            sh = None if shard_leaves is None else next(shard_leaves)
+            out.append(t if sh is None else distribute(t, sh))
     return _unflatten(like_tree, iter(out)), index["step"]

@@ -14,14 +14,18 @@ import torch
 DEFAULT_DEVICE = "cuda"
 
 
-def resolve_device(device: str | torch.device = DEFAULT_DEVICE
-                   ) -> torch.device:
+def resolve_device(device: str | torch.device = DEFAULT_DEVICE, *,
+                   meta: bool = False) -> torch.device:
     """Return ``device`` as a ``torch.device``; raise if it cannot run here.
 
-    Only ``cuda`` and ``cpu`` devices are accepted.  A CUDA device on a
-    machine without one raises ``RuntimeError``.
+    Only ``cuda`` and ``cpu`` devices are accepted, and ``meta`` where the
+    caller passes ``meta=True``: the LM stack's entry points, for the
+    dry-run's abstract step (shapes only, nothing allocated or computed).
+    A CUDA device on a machine without one raises ``RuntimeError``.
     """
     dev = torch.device(device)
+    if meta and dev.type == "meta":
+        return dev
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(

@@ -1,4 +1,5 @@
 """Model zoo: the 10 assigned architectures as one configurable decoder
 stack (port of ``repro.models``)."""
 from .config import ArchConfig
-from .transformer import Model, forward, init_cache, init_params
+from .transformer import (Model, forward, init_cache, init_params,
+                          param_specs)

@@ -94,17 +94,16 @@ def _flash_bwd_impl(q, k, v, qpos, kpos, o, lse, do, window, q_chunk,
     vs = v.reshape(b, nk, kv_chunk, kv, hd)
     kp = kpos.reshape(nk, kv_chunk)
 
-    dk = torch.zeros((b, nk, kv_chunk, kv, hd), dtype=torch.float32,
-                     device=q.device)
-    dv = torch.zeros_like(dk)
+    # accumulated out of place, from the first chunk's terms (an in-place
+    # += on a zeros buffer gives the same bits and DTensor refuses it)
+    dk = dv = None
     dqs = []
     for i in range(nq):
         qc, qpc = qs[:, i], qp[i]
         lse_t = lses[:, i].permute(0, 2, 3, 1)            # (B,KV,G,Tq)
         do_t = dos[:, i].permute(0, 2, 3, 1, 4).float()   # (B,KV,G,Tq,hd)
         d_t = ds_[:, i].permute(0, 2, 3, 1)               # (B,KV,G,Tq)
-        dq = torch.zeros((b, q_chunk, kv, g, hd), dtype=torch.float32,
-                         device=q.device)
+        dq = None
         dk_cs, dv_cs = [], []
         for j in range(nk):
             kc, vc = ks[:, j], vs[:, j]
@@ -115,10 +114,12 @@ def _flash_bwd_impl(q, k, v, qpos, kpos, o, lse, do, window, q_chunk,
             dv_cs.append(torch.einsum("bkgtu,bkgth->bukh", p, do_t))
             dp = torch.einsum("bkgth,bukh->bkgtu", do_t, vc.float())
             dsx = p * (dp - d_t[..., None]) * scale
-            dq = dq + torch.einsum("bkgtu,bukh->btkgh", dsx, kc.float())
+            dq_j = torch.einsum("bkgtu,bukh->btkgh", dsx, kc.float())
+            dq = dq_j if dq is None else dq + dq_j
             dk_cs.append(torch.einsum("bkgtu,btkgh->bukh", dsx, qc.float()))
-        dk += torch.stack(dk_cs, dim=1)
-        dv += torch.stack(dv_cs, dim=1)
+        dk_i, dv_i = torch.stack(dk_cs, dim=1), torch.stack(dv_cs, dim=1)
+        dk = dk_i if dk is None else dk + dk_i
+        dv = dv_i if dv is None else dv + dv_i
         dqs.append(dq)
     dq = torch.stack(dqs, dim=1).reshape(b, sq, kv, g, hd).to(q.dtype)
     return (dq, dk.reshape(b, skv, kv, hd).to(k.dtype),

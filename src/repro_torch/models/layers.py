@@ -12,16 +12,23 @@ attention takes a static-size KV band per query chunk (linear in S).  The
 reference's context-parallel prefill path exists to shard the query chunks
 over a mesh; on one device it is the same online softmax as
 ``flash_vjp.flash_core``, which the port runs in its place (one query chunk
-of temporaries at a time).
+of temporaries at a time).  On a mesh (DTensors under ``dist.use_mesh``)
+the attention runs on each device's heads and batch rows under
+``local_map`` (``_head_local``): `model` splits the KV heads, or G where it
+does not divide KV.
 """
 from __future__ import annotations
 
+import functools
 import math
+from types import SimpleNamespace
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..dist.constraints import BATCH, _current_mesh, constrain, divides
 
 NEG_INF = -1e30
 
@@ -30,15 +37,27 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 
 
+#: the weight source of ``transformer.param_specs``: allocates on the meta
+#: device and draws nothing (the reference's ``jax.eval_shape``)
+META_INIT = SimpleNamespace(device=torch.device("meta"))
+
+
+def randn(gen, shape) -> torch.Tensor:
+    """Standard normal f32 draws from ``gen`` on ``gen``'s device; on the
+    meta device (``META_INIT``) an empty tensor of the shape."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32)
+
+
 def dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
                scale: float | None = None) -> nn.Parameter:
     """A weight drawn from ``gen`` (on ``gen``'s device): standard normal
     times ``scale`` (default ``1/sqrt(shape[0])``), drawn in f32 and cast."""
     fan_in = shape[0]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    w = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32) * scale
-    return nn.Parameter(w.to(dtype))
+    return nn.Parameter((randn(gen, shape) * scale).to(dtype))
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
@@ -87,6 +106,18 @@ class Norm(nn.Module):
         return apply_norm(x, self, self.kind, self.eps)
 
 
+def pad_seq(x: torch.Tensor, before: int, after: int = 0) -> torch.Tensor:
+    """``x`` with ``before`` / ``after`` zero positions along dim 1:
+    ``F.pad``'s result, by concatenation (DTensor's sharding rule for pad
+    is wrong in some torch versions: it gives one placement on a 2-D
+    mesh)."""
+    z = torch.zeros_like(x[:, :1])
+    parts = [z.expand(x.shape[0], n, *x.shape[2:]) if n else None
+             for n in (before, after)]
+    return torch.cat([t for t in (parts[0], x, parts[1]) if t is not None],
+                     dim=1)
+
+
 # ---------------------------------------------------------------------------
 # RoPE (+ M-RoPE for Qwen2-VL)
 # ---------------------------------------------------------------------------
@@ -100,11 +131,9 @@ def _section_ids(sections: tuple, n: int, device) -> torch.Tensor:
     """Which position axis each of the ``n`` frequency slots reads: section
     ``s`` repeated ``sections[s]`` times, cut or padded with the last value
     to ``n`` (``jnp.repeat(..., total_repeat_length=n)``)."""
-    ids = torch.repeat_interleave(torch.arange(len(sections), device=device),
-                                  torch.tensor(sections, device=device))
-    if ids.numel() >= n:
-        return ids[:n]
-    return torch.cat([ids, ids[-1:].expand(n - ids.numel())])
+    ids = [s for s, size in enumerate(sections) for _ in range(size)]
+    ids = (ids + ids[-1:] * n)[:n]
+    return torch.tensor(ids, device=device)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
@@ -173,8 +202,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, sq, h, hd = q.shape
     skv, kv = k.shape[1], k.shape[2]
     g = h // kv
-    scale = 1.0 / math.sqrt(hd)
     q = q.reshape(b, sq, kv, g, hd)
+    g_sharded = not divides("model", kv)
+    if g_sharded:
+        # heads over `model` through G where it cannot go through KV (the
+        # reference's mesh path shards query chunks instead)
+        q = constrain(q, BATCH, None, None, "model", None)
 
     q_chunk = min(q_chunk, sq)
     kv_chunk = min(kv_chunk, skv)
@@ -183,19 +216,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # pad to whole chunks (padding keys get position 2**30: fully masked)
     qpad, kpad = nq * q_chunk - sq, nk * kv_chunk - skv
     if qpad:
-        q = F.pad(q, (0, 0, 0, 0, 0, 0, 0, qpad))
+        q = pad_seq(q, 0, qpad)
         q_positions = F.pad(q_positions, (0, qpad))
     if kpad:
-        k = F.pad(k, (0, 0, 0, 0, 0, kpad))
-        v = F.pad(v, (0, 0, 0, 0, 0, kpad))
+        k, v = pad_seq(k, 0, kpad), pad_seq(v, 0, kpad)
         kv_positions = F.pad(kv_positions, (0, kpad), value=2**30)
 
-    qs = q.reshape(b, nq, q_chunk, kv, g, hd)
-    qp = q_positions.reshape(nq, q_chunk)
+    out5 = _head_local(_attend_chunks, q, k, v, q_positions, kv_positions,
+                       g_sharded, window=window, q_chunk=q_chunk,
+                       kv_chunk=kv_chunk)                 # (B,Sq,KV,G,hd)
+    return _merge_heads(out5, (b, nq * q_chunk, h, hd), g_sharded)[:, :sq]
 
+
+def _attend_chunks(q, k, v, q_positions, kv_positions, *, window, q_chunk,
+                   kv_chunk) -> torch.Tensor:
+    """Attention of q (B, nq * Tq, KV, G, hd) over k / v (B, nk * Tk, KV,
+    hd), padded to whole chunks: a static-size KV band per query chunk
+    where a window is shorter than the keys, else ``flash_core``.
+    Returns (B, nq * Tq, KV, G, hd)."""
+    b, sqp, kv, g, hd = q.shape
+    nq, nk = sqp // q_chunk, k.shape[1] // kv_chunk
     band = (-(-((window or 0) + q_chunk) // kv_chunk) + 1) * kv_chunk
     if window is not None and nk * kv_chunk > band:
         # static-size KV band per query chunk: linear-in-S total work
+        scale = 1.0 / math.sqrt(hd)
+        qs = q.reshape(b, nq, q_chunk, kv, g, hd)
+        qp = q_positions.reshape(nq, q_chunk)
         outs = []
         for qi in range(nq):
             start = min(max(qi * q_chunk + q_chunk - band, 0),
@@ -207,13 +253,62 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             outs.append(pv / torch.clamp(l, min=1e-30)[..., None]
                         .to(pv.dtype))                    # (B,KV,G,Tq,hd)
         out = torch.stack(outs, dim=1)                    # (B,nq,KV,G,Tq,hd)
-        out = out.permute(0, 1, 4, 2, 3, 5).reshape(b, nq * q_chunk, h, hd)
-        return out[:, :sq]
+        return out.permute(0, 1, 4, 2, 3, 5).reshape(b, sqp, kv, g, hd)
 
     from .flash_vjp import flash_core
-    out5 = flash_core(q, k, v, q_positions, kv_positions, window, q_chunk,
-                      kv_chunk)                           # (B,Sq,KV,G,hd)
-    return out5.reshape(b, nq * q_chunk, h, hd)[:, :sq]
+    return flash_core(q, k, v, q_positions, kv_positions, window, q_chunk,
+                      kv_chunk)
+
+
+def _head_local(fn, q, k, v, q_positions, kv_positions, g_sharded: bool,
+                **kw) -> torch.Tensor:
+    """``fn(q, k, v, q_positions, kv_positions, **kw)`` with q (B, S, KV,
+    G, hd); on DTensors under an active mesh, on each device's own heads
+    and batch rows (``local_map``): q split over `model` on KV, or on G
+    where ``g_sharded`` (k / v then whole on every device, their
+    gradients partial sums over `model`), the batch over its batch axes,
+    DTensor positions as they are.  The attention's ops then run on plain
+    tensors, its backward too."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+    mesh = _current_mesh()
+    if mesh is None or not isinstance(q, DTensor):
+        return fn(q, k, v, q_positions, kv_positions, **kw)
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..dist.sharding import _batch_entry, mesh_placement
+    entry = _batch_entry(mesh, q.shape[0])
+    batch = (entry,) if isinstance(entry, str) else tuple(entry or ())
+    q_model = (Shard(3) if divides("model", q.shape[3]) else None) \
+        if g_sharded else Shard(2)
+    kv_model = None if g_sharded else Shard(2)
+    kv_grad = (Partial() if q_model is not None else None) if g_sharded \
+        else Shard(2)
+
+    def place(model):
+        return tuple(mesh_placement(mesh, a, Shard(0) if a in batch
+                                    else model if a == "model" else None)
+                     for a in mesh.mesh_dim_names)
+    def own(t):         # positions: as they are (a decode's by batch)
+        return tuple(t.placements) if isinstance(t, DTensor) else None
+    qp, kvp, kvg = place(q_model), place(kv_model), place(kv_grad)
+    pos = (own(q_positions), own(kv_positions))
+    return local_map(
+        functools.partial(fn, **kw), out_placements=(qp,),
+        in_placements=(qp, kvp, kvp) + pos,
+        in_grad_placements=(qp, kvg, kvg) + pos,
+        device_mesh=mesh, redistribute_inputs=True,
+    )(q, k, v, q_positions, kv_positions)
+
+
+def _merge_heads(o, shape, g_sharded: bool) -> torch.Tensor:
+    """``o`` (B, ..., KV, G, hd) reshaped to ``shape`` (B, S, H, hd).  With
+    G on `model` the heads are gathered first, and the gradient before the
+    backward's split: a DTensor reshape cannot merge or split a shard of
+    an inner dim."""
+    if not g_sharded:
+        return o.reshape(shape)
+    o = constrain(o, BATCH, *(None,) * (o.ndim - 1))
+    return constrain(o.reshape(shape), BATCH, None, None, None)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -230,7 +325,19 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """
     b, _, h, hd = q.shape
     kv = k_cache.shape[2]
-    g = h // kv
+    g_sharded = not divides("model", kv)
+    q = q.reshape(b, 1, kv, h // kv, hd)
+    if g_sharded:
+        q = constrain(q, BATCH, None, None, "model", None)
+    o = _head_local(_decode_core, q, k_cache, v_cache, q_position,
+                    kv_positions, g_sharded, window=window)
+    return _merge_heads(o, (b, 1, h, hd), g_sharded)
+
+
+def _decode_core(q, k_cache, v_cache, q_position, kv_positions, *,
+                 window) -> torch.Tensor:
+    """``decode_attention`` on q (B, 1, KV, G, hd); (B, 1, KV, G, hd)."""
+    b, _, kv, g, hd = q.shape
     scale = 1.0 / math.sqrt(hd)
     dt = torch.promote_types(q.dtype, k_cache.dtype)    # jnp's promotion
     qr = q.reshape(b, kv, g, hd).to(dt)
@@ -241,7 +348,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     s = torch.where(valid[:, None, None], s.float(), NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgu,bukh->bkgh", p.to(v_cache.dtype), v_cache)
-    return o.reshape(b, 1, h, hd)
+    return o.reshape(b, 1, kv, g, hd)
 
 
 # ---------------------------------------------------------------------------

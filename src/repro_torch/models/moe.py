@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist.constraints import constrain
 from .layers import MLP, dense_init, mlp_apply
 
 
@@ -30,10 +31,20 @@ def moe_apply(p, x, *, top_k: int, capacity_factor: float, act: str):
 
     ``capacity_factor <= 0`` is exact mode: the capacity is every token."""
     b, s, d = x.shape
-    t = b * s
-    xf = x.reshape(t, d)
-    n_experts = p.router.shape[-1]
+    xf = x.reshape(b * s, d)
     logits = (xf @ p.router).float()                          # (T, E)
+    y = dispatch_combine(xf, logits, p.experts, top_k=top_k,
+                         capacity_factor=capacity_factor, act=act)
+    return y.reshape(b, s, d), logits
+
+
+def dispatch_combine(xf, logits, experts, *, top_k: int,
+                     capacity_factor: float, act: str):
+    """Route the tokens ``xf`` (T, d) by their router ``logits`` (T, E, f32)
+    to the ``experts`` (an MLP stacked over E, or any object with its
+    weights), run them on an (E, C, d) buffer and combine: (T, d)."""
+    t, d = xf.shape
+    n_experts = logits.shape[-1]
     probs = torch.softmax(logits, dim=-1)
     gate, idx = torch.topk(probs, top_k, dim=-1)              # (T, k)
     gate = gate / torch.sum(gate, dim=-1, keepdim=True)       # renormalize
@@ -52,19 +63,22 @@ def moe_apply(p, x, *, top_k: int, capacity_factor: float, act: str):
     # scatter tokens into (E, C, d)
     e_flat = idx.reshape(-1)
     c_flat = torch.clamp(pos.reshape(-1), 0, capacity - 1)
-    buf = torch.zeros((n_experts, capacity, d), dtype=x.dtype,
-                      device=x.device)
+    buf = torch.zeros((n_experts, capacity, d), dtype=xf.dtype,
+                      device=xf.device)
     src = torch.repeat_interleave(xf, top_k, dim=0)
-    w = keep.reshape(-1, 1).to(x.dtype)
-    buf.index_put_((e_flat, c_flat), src * w, accumulate=True)
+    w = keep.reshape(-1, 1).to(xf.dtype)
+    buf = buf.index_put((e_flat, c_flat), src * w, accumulate=True)
+    # expert parallelism on DTensors: the expert axis on the mesh's `model`
+    # axis (dropped gracefully when E % model != 0)
+    buf = constrain(buf, "model", None, None)
 
-    out = mlp_apply(p.experts, buf, act)                      # (E, C, d)
+    out = mlp_apply(experts, buf, act)                        # (E, C, d)
+    out = constrain(out, "model", None, None)
 
     # combine
     gathered = out[e_flat, c_flat]                            # (T*k, d)
-    y = torch.sum((gathered * gate.reshape(-1, 1).to(x.dtype))
-                  .reshape(t, top_k, d), dim=1)
-    return y.reshape(b, s, d), logits
+    return torch.sum((gathered * gate.reshape(-1, 1).to(xf.dtype))
+                     .reshape(t, top_k, d), dim=1)
 
 
 def load_balancing_loss(router_logits: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import dense_init
+from .layers import dense_init, pad_seq, randn
 
 _C = 8.0
 
@@ -59,8 +59,7 @@ class RGLRU(nn.Module):
         self.in_x = dense_init(gen, (d, rw), dtype)
         self.in_y = dense_init(gen, (d, rw), dtype)
         self.conv = nn.Parameter(
-            (torch.randn((conv_width, rw), generator=gen, device=dev)
-             * 0.1).to(dtype))
+            (randn(gen, (conv_width, rw)) * 0.1).to(dtype))
         self.gate_a = dense_init(gen, (rw, rw), dtype)
         self.gate_x = dense_init(gen, (rw, rw), dtype)
         self.lamb = nn.Parameter(torch.linspace(0.5, 4.0, rw, device=dev)
@@ -75,7 +74,7 @@ def causal_conv(x, w, state=None):
     the updated state."""
     cw = w.shape[0]
     if state is None:
-        pad = F.pad(x, (0, 0, cw - 1, 0))
+        pad = pad_seq(x, cw - 1)
     else:
         pad = torch.cat([state, x], dim=1)
     out = sum(pad[:, i:i + x.shape[1]] * w[i] for i in range(cw))

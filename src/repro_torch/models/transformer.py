@@ -21,14 +21,17 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from ..dist.constraints import BATCH, constrain, divides
 from ..kernels.config import resolve_device
 from .config import ArchConfig
-from .layers import (MLP, Norm, apply_rope, decode_attention, dense_init,
-                     flash_attention, rmsnorm)
+from .layers import (META_INIT, MLP, Norm, apply_rope, decode_attention,
+                     dense_init, flash_attention, pad_seq, rmsnorm)
 from .mamba2 import Mamba2, mamba2_apply
 from .moe import MoE, load_balancing_loss, moe_apply
+from .moe_shardmap import moe_apply_shardmap
 from .rglru import RGLRU, rglru_apply
 
 MROPE_SECTIONS = (16, 24, 24)   # Qwen2-VL mrope_section over head_dim/2
@@ -76,9 +79,19 @@ class AttnBlock(nn.Module):
     def _project_qkv(self, h):
         cfg = self.cfg
         b, s, _ = h.shape
-        q, k, v = h @ self.wq, h @ self.wk, h @ self.wv
+        # a DTensor reshape splits a sharded dim only into whole shards, so
+        # the flat projections are placed before the head split (the
+        # reference places the split q / k / v), and before the bias too,
+        # so that no partial sum meets it
+        heads = q_heads_entry(cfg)
+
+        def place(t, entry):
+            return constrain(t, BATCH, None, entry)
+        q, k, v = (place(h @ self.wq, heads), place(h @ self.wk, None),
+                   place(h @ self.wv, None))
         if cfg.qkv_bias:
-            q, k, v = q + self.bq, k + self.bk, v + self.bv
+            q, k, v = (place(q + self.bq, heads), place(k + self.bk, None),
+                       place(v + self.bv, None))
         q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
         k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
         v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
@@ -90,8 +103,15 @@ class AttnBlock(nn.Module):
     def forward(self, x, positions, cache, cur_pos, build_len=None):
         """cache None: training / prefill; else one decode token."""
         cfg = self.cfg
-        b = x.shape[0]
-        q, k, v = self._project_qkv(self.ln1(x))
+        # Megatron-SP transition: all-gather the sequence dim here; heads are
+        # model-sharded inside attention; the residual add reduce-scatters
+        h = constrain(self.ln1(x), BATCH, None, None)
+        q, k, v = self._project_qkv(h)
+        # tensor-parallel attention: q heads over `model`, the small GQA
+        # k / v replicated (q_heads_entry: where whole KV groups fit)
+        q = constrain(q, BATCH, None, q_heads_entry(cfg), None)
+        k = constrain(k, BATCH, None, None, None)
+        v = constrain(v, BATCH, None, None, None)
         if cfg.pos_emb == "rope":
             sections = MROPE_SECTIONS if cfg.m_rope else None
             q = apply_rope(q, positions, cfg.rope_theta, sections)
@@ -108,28 +128,79 @@ class AttnBlock(nn.Module):
             slot = cur_pos % kc.shape[1]
             kc[:, slot] = k[:, 0].to(kc.dtype)
             vc[:, slot] = v[:, 0].to(vc.dtype)
-            pc[:, slot] = cur_pos
-            qpos = torch.full((b,), cur_pos, dtype=pc.dtype, device=x.device)
+            pc[:, slot] = torch.full_like(pc[:, slot], cur_pos)
+            qpos = torch.full_like(pc[:, 0], cur_pos)  # as pc, by batch
             attn = decode_attention(q, kc, vc, qpos, pc,
                                     window=cfg.attn_window)
             new_cache = {"k": kc, "v": vc, "pos": pc}
+        # the gradient placed by heads before the backward splits them
+        attn = constrain(attn.reshape(*attn.shape[:2], -1), BATCH, None,
+                         q_heads_entry(cfg))
         # a cache of another dtype than the weights (f32 weights over a
         # bf16 cache) promotes as jnp does
-        attn = attn.reshape(*attn.shape[:2], -1)
         dt = torch.promote_types(attn.dtype, self.wo.dtype)
-        x = x + attn.to(dt) @ self.wo.to(dt)
+        x = _residual(cfg, x, attn.to(dt) @ self.wo.to(dt))
 
-        h2 = self.ln2(x)
+        h2 = constrain(self.ln2(x), BATCH, None, None)   # SP (MLP side)
         if cfg.n_experts:
             # decode never drops tokens (exact capacity); prefill and
             # training use the configured capacity factor
             cf = 0.0 if cache is not None else cfg.capacity_factor
-            y, router_logits = moe_apply(self.moe, h2, top_k=cfg.moe_top_k,
-                                         capacity_factor=cf, act=cfg.act)
+            moe = dict(top_k=cfg.moe_top_k, capacity_factor=cf, act=cfg.act)
+            res = None
+            if cache is None:
+                # the explicit dispatch (moe_shardmap.py): engages only
+                # under an active mesh with a `model` axis
+                res = moe_apply_shardmap(self.moe, h2, **moe)
+            if res is None:
+                res = moe_apply(self.moe, h2, **moe)
+            y, router_logits = res
             aux = load_balancing_loss(router_logits)
         else:
             y = self.mlp(h2)
-        return x + y, new_cache, aux
+        return _residual(cfg, x, y), new_cache, aux
+
+
+def _lookup(table, idx):
+    """``table[idx]``.  A DTensor table is gathered whole and indexed on
+    each device's own rows of ``idx`` (``local_map``): the same arithmetic
+    as one device's, forward and backward (DTensor's own rules fail here:
+    a vocab-sharded lookup leaves a masked partial sum that is reduced
+    wrongly on a batch-sharded mesh, and torch 2.11's rule for the
+    indexing backward is wrong); the table's gradient is a partial sum
+    over the axes that split ``idx``."""
+    if not isinstance(table, DTensor):
+        return table[idx]
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    rows = (tuple(idx.placements) if isinstance(idx, DTensor)
+            else (Replicate(),) * mesh.ndim)
+    whole = (Replicate(),) * mesh.ndim
+    grad = tuple(Replicate() if r == Replicate() else Partial()
+                 for r in rows)
+    return local_map(lambda t, i: t[i], out_placements=(rows,),
+                     in_placements=(whole, rows),
+                     in_grad_placements=(grad, rows), device_mesh=mesh,
+                     redistribute_inputs=True)(
+                         constrain(table, None, None), idx)
+
+
+def _residual(cfg: ArchConfig, x, y):
+    """``x + y``, the branch output ``y`` first placed as the residual
+    stream (Megatron-SP: a partial sum reduce-scatters back to the
+    sequence shards; a no-op without a mesh)."""
+    sp = "model" if cfg.seq_parallel else None
+    return x + constrain(y, BATCH, sp, None)
+
+
+def q_heads_entry(cfg: ArchConfig):
+    """The mesh entry of q's head axis: `model` where it divides the KV
+    heads, so each device holds whole GQA groups (attention splits H into
+    (KV, G) next, and a DTensor cannot split a shard); else None, and
+    ``flash_attention`` puts `model` on G.  The reference shards H wherever
+    `model` divides it."""
+    return "model" if divides("model", cfg.n_kv_heads) else None
 
 
 def _prefill_cache(cfg, k, v, pos1d, build_len):
@@ -144,9 +215,7 @@ def _prefill_cache(cfg, k, v, pos1d, build_len):
         src = start + (j - start) % cap           # position living in slot j
         pc = pos1d[src][None].expand(b, cap).to(torch.int32)
         return {"k": k[:, src], "v": v[:, src], "pos": pc.contiguous()}
-    kc = torch.zeros((b, cap) + k.shape[2:], dtype=k.dtype, device=k.device)
-    vc = torch.zeros((b, cap) + v.shape[2:], dtype=v.dtype, device=v.device)
-    kc[:, :s], vc[:, :s] = k, v
+    kc, vc = pad_seq(k, 0, cap - s), pad_seq(v, 0, cap - s)
     pc = torch.full((b, cap), -1, dtype=torch.int32, device=k.device)
     pc[:, :s] = pos1d.to(torch.int32)
     return {"k": kc, "v": vc, "pos": pc}
@@ -168,9 +237,11 @@ class RecBlock(nn.Module):
     def forward(self, x, positions, cache, cur_pos, build_len=None):
         h0 = cache["h"] if cache is not None else None
         cs = cache["conv"] if cache is not None else None
-        y, (h_new, cs_new) = rglru_apply(self.lru, self.ln1(x), h0, cs)
-        x = x + y
-        x = x + self.mlp(self.ln2(x))
+        h = constrain(self.ln1(x), BATCH, None, None)   # SP (recurrence)
+        y, (h_new, cs_new) = rglru_apply(self.lru, h, h0, cs)
+        x = _residual(self.cfg, x, y)
+        x = _residual(self.cfg, x, self.mlp(constrain(self.ln2(x), BATCH,
+                                                      None, None)))
         new_cache = ({"h": h_new, "conv": cs_new}
                      if (cache is not None or build_len is not None)
                      else None)
@@ -193,13 +264,14 @@ class SSMBlock(nn.Module):
         st = cache["state"] if cache is not None else None
         cs = cache["conv"] if cache is not None else None
         y, (st_new, cs_new) = mamba2_apply(
-            self.ssm, self.ln1(x), st, cs, d_model=cfg.d_model,
+            self.ssm, constrain(self.ln1(x), BATCH, None, None), st, cs,
+            d_model=cfg.d_model,
             ssm_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
             chunk=cfg.ssm_chunk)
         new_cache = ({"state": st_new, "conv": cs_new}
                      if (cache is not None or build_len is not None)
                      else None)
-        return x + y, new_cache, _aux0(x)
+        return _residual(cfg, x, y), new_cache, _aux0(x)
 
 
 _BLOCKS = {"attn": AttnBlock, "rec": RecBlock, "ssm": SSMBlock}
@@ -229,7 +301,8 @@ class Model(nn.Module):
         if cfg.takes_embeddings and inputs.ndim == 3:
             x = inputs
         else:
-            x = self.embed[inputs]
+            x = _lookup(self.embed, inputs)
+        sp = "model" if cfg.seq_parallel else None
         n_slots = len(cfg.block_pattern)
 
         def superblock(x, r):
@@ -237,6 +310,9 @@ class Model(nn.Module):
             from its first block's, as the reference sums it from 0)."""
             caches, aux = [], None
             for layer in range(r * n_slots, (r + 1) * n_slots):
+                # sequence-parallel residual stream (Megatron-SP), dropped
+                # at S == 1 (decode) or where `model` does not divide S
+                x = constrain(x, BATCH, sp, None)
                 x, nc, a = self.blocks[layer](
                     x, positions, None if cache is None else cache[layer],
                     cur_pos, build_len=build_cache_len)
@@ -254,7 +330,9 @@ class Model(nn.Module):
                 x, nc, a = superblock(x, r)
                 new_cache += nc
                 aux = aux + a
-        x = self.ln_f(x)
+        # the sequence gathered for the head (a sharded matmul cannot
+        # flatten a sequence sharded after the batch)
+        x = constrain(self.ln_f(x), BATCH, None, None)
         returns_cache = cache is not None or build_cache_len is not None
         new_cache = new_cache if returns_cache else None
         if return_hidden:
@@ -310,10 +388,17 @@ def init_params(cfg: ArchConfig, seed: int, *, device="cuda",
     return Model(cfg, gen, dtype)
 
 
+def param_specs(cfg: ArchConfig, dtype=torch.bfloat16) -> Model:
+    """The model on the meta device: every parameter's shape and dtype, no
+    allocation and no draw (the reference's ``jax.eval_shape`` of
+    ``init_params``)."""
+    return Model(cfg, META_INIT, dtype)
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cuda",
                dtype=torch.bfloat16) -> list[dict]:
     """An empty decode cache: one dict per layer (module docstring)."""
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta=True)
     rw = cfg.rnn_width or cfg.d_model
     d_in = 2 * cfg.d_model
     conv_dim = d_in + 2 * cfg.ssm_state
@@ -362,7 +447,7 @@ def forward(params: Model, cfg: ArchConfig, inputs, positions, cache=None,
     ``params`` must live on ``device``; ``inputs`` and ``positions`` are
     moved there.  Returns (logits_or_hidden, new_cache, aux_loss).
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta=True)
     if cfg != params.cfg:
         raise ValueError(f"params were built for {params.cfg.name}, not "
                          f"{cfg.name}")

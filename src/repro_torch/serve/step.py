@@ -34,7 +34,7 @@ def prefill(params, cfg: ArchConfig, inputs, *, max_len: int,
     """Token-parallel prefill of ``inputs`` (B, S) tokens or (B, S, d)
     embeddings.  Returns (cache of capacity ``max_len``, logits (B, S,
     vocab))."""
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta=True)
     inputs = torch.as_tensor(inputs, device=dev)
     b, s = inputs.shape[:2]
     logits, cache, _ = forward(params, cfg, inputs,
@@ -52,7 +52,7 @@ def serve_step(params, cache, tokens, cur_pos: int, *, cfg: ArchConfig,
     """One decode step.  tokens: (B, 1) ints (or (B, 1, d) embeddings);
     cur_pos: the absolute position.  Writes ``cache`` in place; returns
     (logits (B, vocab), the cache to use next)."""
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta=True)
     tokens = torch.as_tensor(tokens, device=dev)
     cur_pos = int(cur_pos)
     logits, cache, _ = forward(params, cfg, tokens,

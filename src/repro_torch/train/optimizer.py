@@ -2,7 +2,8 @@
 ``repro.train.optimizer``).
 
 Functions on tensors, not ``torch.optim``: the state is ``AdamWState(step,
-m, v)`` with ``m`` and ``v`` dicts keyed by parameter name, f32 whatever
+m, v)`` with ``m`` and ``v`` dicts keyed by parameter name (DTensors in
+their parameters' placements for a sharded model: ZeRO), f32 whatever
 the parameters' dtype (after an update, ``mu_dtype``: the reference's
 bf16 escape hatch), and ``adamw_update`` does the reference's arithmetic
 in f32 and writes each new value, cast back to the parameter's dtype, into
@@ -62,15 +63,16 @@ def init_opt_state(model: torch.nn.Module) -> AdamWState:
     params = dict(model.named_parameters())
     dev = next(iter(params.values())).device
 
-    def zeros():
-        return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def zeros():        # a DTensor parameter's moments share its placements
+        return {n: torch.zeros_like(p, dtype=torch.float32)
                 for n, p in params.items()}
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       m=zeros(), v=zeros())
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every tensor, in f32."""
+    """sqrt of the sum of squares of every tensor, in f32 (of every whole
+    tensor: a DTensor's local sums are reduced over the mesh)."""
     return torch.sqrt(sum(torch.sum(torch.square(t.float()))
                           for t in tensors))
 

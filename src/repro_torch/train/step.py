@@ -7,10 +7,17 @@ runs the loss and its gradients once per slice of the batch and sums the
 slices' gradients in f32 buffers, as the reference's scan does -- not in
 the parameters' dtype -- which divides the activation memory without
 touching the math.
+
+On a mesh: a model whose parameters are DTensors (placed by
+``dist.params_shardings``) and a batch placed by
+``dist.batch_partition_spec`` run through the same code under
+``dist.use_mesh(mesh)``; each gradient comes back in its parameter's
+placements, the metrics as whole tensors.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.config import resolve_device
@@ -66,11 +73,24 @@ def loss_fn(model, cfg: ArchConfig, inputs, labels, remat: bool = True):
 
 def _grads(model, total) -> dict[str, torch.Tensor]:
     """d total / d every parameter; zeros for one the loss does not reach
-    (the embedding table of a stub-frontend arch with an untied head)."""
+    (the embedding table of a stub-frontend arch with an untied head).  A
+    DTensor parameter's gradient comes in the parameter's placements (the
+    partial sums of a sharded backward reduced)."""
     names, params = zip(*model.named_parameters())
     gs = torch.autograd.grad(total, params, allow_unused=True)
-    return {n: torch.zeros_like(p) if g is None else g
+    return {n: torch.zeros_like(p) if g is None else _placed_like(g, p)
             for n, p, g in zip(names, params, gs)}
+
+
+def _placed_like(g, p):
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _full(t):
+    """A metric as a plain tensor (a DTensor's whole value)."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def train_step(model, opt_state: AdamWState, batch, *, cfg: ArchConfig,
@@ -80,7 +100,7 @@ def train_step(model, opt_state: AdamWState, batch, *, cfg: ArchConfig,
     "labels": (B, S) ints} (tensors or numpy arrays, moved to ``device``).
     Updates ``model`` in place; returns (new opt state, metrics: "loss",
     "aux", "grad_norm", "lr" as 0-d tensors on the device)."""
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta=True)
     if model.embed.device != dev:
         raise ValueError(f"model lives on {model.embed.device}, not on {dev}")
     inputs = torch.as_tensor(batch["inputs"], device=dev)
@@ -91,7 +111,7 @@ def train_step(model, opt_state: AdamWState, batch, *, cfg: ArchConfig,
         grads = _grads(model, total)
     else:
         mb = labels.shape[0] // microbatches
-        g_sum = {n: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+        g_sum = {n: torch.zeros_like(p, dtype=torch.float32)
                  for n, p in model.named_parameters()}
         l_sum = torch.zeros((), dtype=torch.float32, device=dev)
         for i in range(microbatches):
@@ -106,4 +126,4 @@ def train_step(model, opt_state: AdamWState, batch, *, cfg: ArchConfig,
 
     opt_state, opt_metrics = adamw_update(opt_cfg, model, grads, opt_state)
     metrics.update(opt_metrics)
-    return opt_state, metrics
+    return opt_state, {k: _full(v) for k, v in metrics.items()}

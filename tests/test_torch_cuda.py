@@ -1091,3 +1091,132 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
         assert float(d.max()) <= 2 * lr + 1e-6, name
         tight = d <= 1e-4 * max(1.0, float(a.abs().max()))
         assert float(tight.float().mean()) >= 0.99, name
+
+
+@pytest.fixture
+def nccl_lm_mesh(cuda, tmp_path):
+    """A one-rank NCCL group and its (1, 1) ``("data", "model")`` CUDA
+    mesh (``launch.mesh.make_host_mesh``)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.cuda.set_device(torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        yield make_host_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "mixtral-8x22b",
+                                  "mamba2-130m", "qwen2-vl-72b"])
+def test_sharded_train_step_on_the_card_matches_unsharded(cuda, nccl_lm_mesh,
+                                                          arch):
+    """One ``train_step`` of a smoke config (f32) with its parameters and
+    batch placed on the (1, 1) NCCL mesh against the card's unsharded step
+    from the same weights: gradients per leaf within 1e-4 x max(1,
+    max|g|), loss and grad norm rel 1e-4, the new parameters as in
+    ``test_train_step_on_the_card_matches_the_cpu`` (within 2 lr, and 1e-4
+    x max(1, max|p|) on 99% of each leaf); the MoE arch took the explicit
+    dispatch."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import dist as D
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, sample_batch
+    from repro_torch.models import moe_shardmap
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.step import loss_fn, train_step
+    mesh = nccl_lm_mesh
+    cfg = get_smoke_config(arch)
+    _, card = _lm_model_pair(cfg, cuda)
+    sharded = D.distribute_params(_lm_model_pair(cfg, cuda)[1],
+                                  D.params_shardings(card, mesh))
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=2, seed=4)
+    bt = {k: torch.as_tensor(v, device=cuda)
+          for k, v in sample_batch(dcfg, 0).items()}
+    bt_s = {k: D.distribute(v, D.NamedSharding(mesh, D.batch_partition_spec(
+        mesh, v.shape[0], v.ndim))) for k, v in bt.items()}
+    ocfg = AdamWConfig(lr=1e-3, total_steps=10, warmup_steps=1)
+
+    def grads(model, batch):
+        total, m = loss_fn(model, cfg, batch["inputs"],
+                           batch["labels"].long())
+        names, params = zip(*model.named_parameters())
+        return m, dict(zip(names, torch.autograd.grad(total, params,
+                                                      allow_unused=True)))
+    _, g_plain = grads(card, bt)
+    moe_shardmap.reset_engaged_count()
+    with D.use_mesh(mesh):
+        _, g_sh = grads(sharded, bt_s)
+        _, m_sh = train_step(sharded, init_opt_state(sharded), bt_s, cfg=cfg,
+                             opt_cfg=ocfg)
+    assert (moe_shardmap.engaged_count() > 0) == (cfg.n_experts > 0)
+    _, m_plain = train_step(card, init_opt_state(card), bt, cfg=cfg,
+                            opt_cfg=ocfg)
+    for name, want in g_plain.items():
+        if want is None:
+            assert g_sh[name] is None, name
+            continue
+        got = g_sh[name]
+        assert isinstance(got, DTensor)
+        err = float((got.full_tensor() - want).abs().max())
+        assert err <= 1e-4 * max(1.0, float(want.abs().max())), name
+    for key in ("loss", "grad_norm"):
+        assert abs(float(m_sh[key]) / float(m_plain[key]) - 1) < 1e-4, key
+    for (name, a), b in zip(card.named_parameters(), sharded.parameters()):
+        d = (b.full_tensor() - a).abs()
+        assert float(d.max()) <= 2 * 1e-3 + 1e-6, name
+        tight = d <= 1e-4 * max(1.0, float(a.abs().max()))
+        assert float(tight.float().mean()) >= 0.99, name
+
+
+def test_sharded_moe_on_the_card_matches_moe_apply(cuda, nccl_lm_mesh):
+    """``moe_apply_shardmap`` on the (1, 1) NCCL mesh against
+    ``moe_apply`` on the card, exact capacity and the 1.25 factor: outputs
+    and every gradient within 1e-5 x max(1, max|want|)."""
+    import _torch_lm_mesh_worker as worker
+
+    from repro_torch import dist as D
+    from repro_torch.models import moe_shardmap
+    from repro_torch.models.moe import moe_apply
+    mesh = nccl_lm_mesh
+    mi = worker.moe_inputs()
+    for cf in (0.0, 1.25):
+        kw = dict(top_k=worker.MOE["top_k"], capacity_factor=cf, act="silu")
+        m = worker.moe_module(mi).to(cuda)
+        x = torch.tensor(mi["x"], device=cuda, requires_grad=True)
+        want = _moe_grads_on(m, x, moe_apply(m, x, **kw), mi)
+        D.distribute_params(m, {n: D.NamedSharding(mesh, D.param_partition_spec(
+            n, p, mesh)) for n, p in m.named_parameters()})
+        xd = D.distribute(x.detach(), D.NamedSharding(
+            mesh, D.batch_partition_spec(mesh, x.shape[0], 3)))
+        xd.requires_grad_(True)
+        moe_shardmap.reset_engaged_count()
+        with D.use_mesh(mesh):
+            got = _moe_grads_on(m, xd, moe_shardmap.moe_apply_shardmap(
+                m, xd, **kw), mi)
+        assert moe_shardmap.engaged_count() == 1
+        for k, w in want.items():
+            err = float((got[k] - w).abs().max())
+            assert err <= 1e-5 * max(1.0, float(w.abs().max())), (cf, k)
+
+
+def _moe_grads_on(m, x, res, mi):
+    """y, the logits and the gradients of <y, gy> + <logits, glogits> on
+    the card, as whole tensors."""
+    from torch.distributed.tensor import DTensor
+    y, logits = res
+    dev = next(m.parameters()).device
+    gy = torch.tensor(mi["gy"], device=dev)
+    gl = torch.tensor(mi["glogits"], device=dev)
+    total = (y * gy).sum() + (logits * gl).sum()
+    names, params = zip(*m.named_parameters())
+    gs = torch.autograd.grad(total, (x,) + params)
+
+    def whole(t):
+        return (t.full_tensor() if isinstance(t, DTensor) else t).detach()
+    out = {"y": whole(y), "logits": whole(logits), "x": whole(gs[0])}
+    out.update({n: whole(g) for n, g in zip(names, gs[1:])})
+    return out
