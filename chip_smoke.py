@@ -740,9 +740,12 @@ def graph_turns(plan, plan_idx, b, b8, reps: int) -> None:
     """Phase 4: every PCG loop replayed as graphs (B) against the same loop
     run eagerly block by block (A), in turns A B B A at each k in
     ``LOOP_KS``: ms per loop trip (median of ``reps`` loops a turn), the
-    capture's own seconds, and the replayed result bitwise the eager
-    one."""
+    capture's own seconds (the ``loop.capture`` span; "none" where the
+    loop was captured before, or on the CPU, which captures no graph), and
+    the replayed result bitwise the eager one."""
     import torch
+
+    from repro_torch import spans
     for label, pl, batched, rhs in (("round-major", plan, False, b),
                                     ("index", plan_idx, False, b),
                                     (f"round-major B={BATCH}", plan, True,
@@ -751,18 +754,15 @@ def graph_turns(plan, plan_idx, b, b8, reps: int) -> None:
                                      b8)):
         for k in LOOP_KS:
             run = loop_runner(pl, rhs, batched, k)
+            spans.reset()
             _, got = run(False)          # captured here unless cached
+            cap = spans.recent("loop.capture")
             _, want = run(True)
             for g, w in zip(got, want):
                 if not (g == w if isinstance(w, int) else torch.equal(g, w)):
                     raise AssertionError(f"{label} k={k}: the replayed loop "
                                          f"is not bitwise the eager one")
             trips = got[3] if batched else int(got[1])
-            kind = "batched" if batched else "single"
-            cap = [lp.capture_seconds for key, lp in pl._pcg_cache.items()
-                   if key[0] == kind and key[6] == k
-                   and key[7] == (BATCH if batched else None)
-                   and key[1:6] == (1e-7, 10_000, False, 1e8, 1000)]
             times = {"A": [], "B": []}
             for turn in "ABBA":
                 ms = sorted(run(turn == "A")[0] for _ in range(reps))
@@ -773,7 +773,8 @@ def graph_turns(plan, plan_idx, b, b8, reps: int) -> None:
                 f"{times['B'][0]:.4f} / {times['B'][1]:.4f} / "
                 f"{times['A'][1]:.4f}; graph takes {b_ms / a_ms:.3f} of "
                 f"eager; {trips} trips, {-(-trips // k)} reads; capture "
-                f"{cap[0] if cap else 0.0:.3f} s; bitwise the eager loop")
+                + (f"{cap[0].seconds:.3f} s" if cap else "none")
+                + "; bitwise the eager loop")
 
 
 def graph_cache_phase(plan, a, b, first, plan_kw: dict,
@@ -3343,6 +3344,32 @@ def kernel_row(name, launches, cuda_launches, err, ms, plain_ms, bnd, by,
             "library_ms": lib_ms}
 
 
+def environment_phase(dev) -> None:
+    """Phase 1 on the card: versions, and the kernel library built (the
+    ``kernels.compile`` span, 0 where an earlier build was found) and
+    loaded (``kernels.load``), with nvcc's register report."""
+    import torch
+
+    from repro_torch import spans
+    from repro_torch.kernels import _build
+    log("card:", card_line())
+    log("torch", torch.__version__, "cuda", torch.version.cuda,
+        "device", torch.cuda.get_device_name(dev))
+    nvcc = subprocess.run([_build.find_nvcc(), "--version"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()
+    log("nvcc:", nvcc[-1])
+    lib = _build.load_library()
+    took = {r.name: r.seconds for r in spans.recent()
+            if r.name.startswith("kernels.")}
+    log(f"kernel library {lib.path.name}: built in "
+        f"{took.get('kernels.compile', 0.0):.2f} s (load "
+        f"{took.get('kernels.load', 0.0):.2f} s)")
+    for line in lib.log.splitlines():
+        if "registers" in line or line.startswith("=="):
+            log("  ", line.strip())
+
+
 def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
         iterations: int | None = MAIN_ITERATIONS) -> list[dict]:
     """All phases; returns the kernel rows of the JSON line.
@@ -3381,21 +3408,7 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     # -- 1. environment + build ---------------------------------------------
     log("== 1. environment")
     if on_card:
-        log("card:", card_line())
-        log("torch", torch.__version__, "cuda", torch.version.cuda,
-            "device", torch.cuda.get_device_name(dev))
-        nvcc = subprocess.run([_build.find_nvcc(), "--version"],
-                              capture_output=True, text=True, timeout=60,
-                              check=True).stdout.strip().splitlines()
-        log("nvcc:", nvcc[-1])
-        t0 = time.perf_counter()
-        lib = _build.load_library()
-        log(f"kernel library {lib.path.name}: built in "
-            f"{lib.build_seconds:.2f} s (load {time.perf_counter() - t0:.2f}"
-            " s)")
-        for line in lib.log.splitlines():
-            if "registers" in line or line.startswith("=="):
-                log("  ", line.strip())
+        environment_phase(dev)
 
     # -- 2. kernel vs plain ---------------------------------------------------
     log("== 2. kernel vs plain on the card" if on_card else

@@ -40,12 +40,12 @@ A failed capture or replay raises: there is no fallback to a host loop.
 from __future__ import annotations
 
 import gc
-import time
 from typing import Callable
 
 import torch
 
 from .. import kernels
+from ..spans import span
 from . import mesh
 
 #: PCG steps per block, and so per host read of the loop's flag.  On the
@@ -149,7 +149,6 @@ class BlockLoop:
         self._static: State | None = None
         self._flag: torch.Tensor | None = None
         self._launches: dict | None = None
-        self.capture_seconds = 0.0
 
     def _block(self, step: Callable[[State], State], state: State) -> State:
         for _ in range(self.k):
@@ -229,33 +228,33 @@ class BlockLoop:
         """The first block, eagerly on the capture stream: the warm-up the
         ``torch.cuda.graphs`` docs ask for before a capture."""
         dev = state[0].device
-        side = self._cache._side_stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            state = self._block(step, state)
-        torch.cuda.current_stream(dev).wait_stream(side)
+        with span("loop.first_block"):
+            side = self._cache._side_stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                state = self._block(step, state)
+            torch.cuda.current_stream(dev).wait_stream(side)
         _counts["blocks"] += 1
         return state
 
     def _capture(self, state: State, step, flag) -> None:
         dev = state[0].device
-        static = tuple(t.clone() for t in state)
-        live = torch.zeros((), dtype=torch.bool, device=dev)
-        before = _counter_values()
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        # no garbage collection while the stream captures: collecting an
-        # unreachable plan would destroy its graphs, which CUDA forbids
-        # during a capture, and the capture would fail
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            self._record(graph, dev, static, live, step, flag)
-        finally:
-            if collecting:
-                gc.enable()
-        torch.cuda.synchronize(dev)
-        self.capture_seconds = time.perf_counter() - t0
+        with span("loop.capture"):
+            static = tuple(t.clone() for t in state)
+            live = torch.zeros((), dtype=torch.bool, device=dev)
+            before = _counter_values()
+            graph = torch.cuda.CUDAGraph()
+            # no garbage collection while the stream captures: collecting
+            # an unreachable plan would destroy its graphs, which CUDA
+            # forbids during a capture, and the capture would fail
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                self._record(graph, dev, static, live, step, flag)
+            finally:
+                if collecting:
+                    gc.enable()
+            torch.cuda.synchronize(dev)
         after = _counter_values()
         # the capture issued one block's launches and ran none of them
         self._launches = {key: after[key] - before[key] for key in after}

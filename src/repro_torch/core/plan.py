@@ -58,6 +58,7 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..kernels.config import DEFAULT_DEVICE, resolve_device
+from ..spans import span
 from . import sell
 from .coloring import (_validate_block_size, build_blocks, color_blocks,
                        multicolor_ordering, pad_system)
@@ -310,6 +311,23 @@ def _shard_rows(vals: np.ndarray, cols: np.ndarray, size: int, rank: int,
     return vals[rows], cols[rows]
 
 
+def _upload(host: np.ndarray, device: torch.device,
+            moved: span | None = None) -> torch.Tensor:
+    """``host`` as a tensor on ``device``; the bytes that cross to the
+    device, none on the CPU, are added to ``moved.nbytes``."""
+    if moved is not None and device.type != "cpu":
+        moved.nbytes += host.nbytes
+    return torch.as_tensor(host, device=device)
+
+
+def _download(t: torch.Tensor, moved: span | None = None) -> torch.Tensor:
+    """``t`` on the host; the bytes that cross, none from the CPU, are
+    added to ``moved.nbytes``."""
+    if moved is not None and t.device.type != "cpu":
+        moved.nbytes += t.nbytes
+    return t.cpu()
+
+
 class SolverPlan:
     """Factor-once / solve-many ICCG plan (see module docstring).
 
@@ -366,30 +384,32 @@ class SolverPlan:
         self._a_indptr = a.indptr.copy()
         self._a_indices = a.indices.copy()
 
-        t0 = time.perf_counter()
-        self._sysd = _order_system(a, None, method, block_size, w,
-                                   scheduler=scheduler)
-        self.n, self.n_padded = self._sysd.n, self._sysd.n_padded
-        self.n_colors = self._sysd.n_colors
-        self._perm = self._sysd.perm
-        t1 = time.perf_counter()
-        self._structure = ic0_structure(self._sysd.a_bar,
-                                        self._sysd.fwd_rounds)
-        l_bar = self._factor(self._sysd.a_bar)
-        t2 = time.perf_counter()
-        held = self._build_operators(l_bar)
-        if validate != "off":
-            # static race proof BEFORE the plan is handed out: "cheap" is
-            # the O(nnz) round-monotonicity scan, "full" additionally
-            # proves the tables the kernels launch, their segment cuts and
-            # the IC(0) step schedule (raises ScheduleError with the
-            # offending witness)
-            from ..analysis.schedule import assert_plan_valid
-            assert_plan_valid(self, validate, tables=held,
-                              context=f"build_plan(method={method!r})")
-        t3 = time.perf_counter()
-        self.timings = SetupBreakdown(ordering=t1 - t0, factor=t2 - t1,
-                                      pack=t3 - t2, total=t3 - t0,
+        with span("build") as build:
+            with span("build.ordering") as ordering:
+                self._sysd = _order_system(a, None, method, block_size, w,
+                                           scheduler=scheduler)
+                self.n, self.n_padded = self._sysd.n, self._sysd.n_padded
+                self.n_colors = self._sysd.n_colors
+                self._perm = self._sysd.perm
+            with span("build.factor") as factor:
+                self._structure = ic0_structure(self._sysd.a_bar,
+                                                self._sysd.fwd_rounds)
+                l_bar = self._factor(self._sysd.a_bar)
+            with span("build.pack") as pack:
+                held = self._build_operators(l_bar)
+                if validate != "off":
+                    # static race proof BEFORE the plan is handed out:
+                    # "cheap" is the O(nnz) round-monotonicity scan, "full"
+                    # additionally proves the tables the kernels launch,
+                    # their segment cuts and the IC(0) step schedule
+                    # (raises ScheduleError with the offending witness)
+                    from ..analysis.schedule import assert_plan_valid
+                    assert_plan_valid(
+                        self, validate, tables=held,
+                        context=f"build_plan(method={method!r})")
+        self.timings = SetupBreakdown(ordering=ordering.seconds,
+                                      factor=factor.seconds,
+                                      pack=pack.seconds, total=build.seconds,
                                       **(self._sysd.ordering_stages or {}))
         self.setup_count += 1
         self.lane_occupancy = _occupancy_from_rounds(self._sysd.fwd_rounds,
@@ -432,36 +452,35 @@ class SolverPlan:
         here.
         """
         device = resolve_device(device)
-        t0 = time.perf_counter()
-        plan = cls.__new__(cls)
-        vals_dtype = np.asarray(arrays["vals"]).dtype
-        plan._init_common(device, {np.dtype(v): k for k, v in
-                                   _NP_DTYPES.items()}.get(vals_dtype))
-        plan.layout, plan.spmv_format = "round_major", "sell"
-        plan.method = str(arrays.get("method", "unknown"))
-        plan.scheduler = "coloring"
-        plan.validate = "off"
-        plan.n, plan.n_padded = int(arrays["n"]), int(arrays["n_padded"])
-        plan.n_colors = int(arrays.get("n_colors", 0))
-        plan._perm = np.asarray(arrays["perm"])
-        plan._sysd = None
-        plan._rm = sell.RoundMajorLayout(
-            rows=np.asarray(arrays["rows"], dtype=np.int32),
-            pos=np.asarray(arrays["pos"], dtype=np.int64),
-            n_slots=int(arrays["n_slots"]))
-        plan._precond = RoundMajorPreconditioner(
-            tables=DeviceFusedTables.from_arrays(
-                arrays["cols"], arrays["vals"], arrays["dinv"], plan.dtype,
-                device))
-        plan._set_spmv_operand(arrays["sell_vals"], arrays["sell_cols"],
-                               int(arrays["sell_n"]))
-        live = (plan._rm.rows != plan._rm.n_slots - 1).sum(axis=1)
-        live = live[live > 0].astype(np.float64)
-        plan.lane_occupancy = (float(np.mean(live / live.max()))
-                               if len(live) else 1.0)
-        t1 = time.perf_counter()
+        with span("build") as build, span("build.pack") as pack:
+            plan = cls.__new__(cls)
+            vals_dtype = np.asarray(arrays["vals"]).dtype
+            plan._init_common(device, {np.dtype(v): k for k, v in
+                                       _NP_DTYPES.items()}.get(vals_dtype))
+            plan.layout, plan.spmv_format = "round_major", "sell"
+            plan.method = str(arrays.get("method", "unknown"))
+            plan.scheduler = "coloring"
+            plan.validate = "off"
+            plan.n, plan.n_padded = int(arrays["n"]), int(arrays["n_padded"])
+            plan.n_colors = int(arrays.get("n_colors", 0))
+            plan._perm = np.asarray(arrays["perm"])
+            plan._sysd = None
+            plan._rm = sell.RoundMajorLayout(
+                rows=np.asarray(arrays["rows"], dtype=np.int32),
+                pos=np.asarray(arrays["pos"], dtype=np.int64),
+                n_slots=int(arrays["n_slots"]))
+            plan._precond = RoundMajorPreconditioner(
+                tables=DeviceFusedTables.from_arrays(
+                    arrays["cols"], arrays["vals"], arrays["dinv"],
+                    plan.dtype, device))
+            plan._set_spmv_operand(arrays["sell_vals"], arrays["sell_cols"],
+                                   int(arrays["sell_n"]))
+            live = (plan._rm.rows != plan._rm.n_slots - 1).sum(axis=1)
+            live = live[live > 0].astype(np.float64)
+            plan.lane_occupancy = (float(np.mean(live / live.max()))
+                                   if len(live) else 1.0)
         plan.timings = SetupBreakdown(ordering=0.0, factor=0.0,
-                                      pack=t1 - t0, total=t1 - t0)
+                                      pack=pack.seconds, total=build.seconds)
         plan.setup_count = 1
         return plan
 
@@ -614,35 +633,40 @@ class SolverPlan:
             raise ValueError("refactor requires a structure-identical "
                              "matrix (same sparsity pattern); build a new "
                              "plan instead")
-        t0 = time.perf_counter()
-        a_bar = self._sysd.apply_ordering(a_new)
-        # factor BEFORE mutating plan state: a FactorBreakdownError from the
-        # on_breakdown policy leaves the old (working) operators in place
-        l_bar = self._factor(a_bar)
-        self._sysd.a_bar = a_bar
-        t1 = time.perf_counter()
-        old = (self._precond, self._rm, self._spmv_vals, self._spmv_cols)
-        old_tables = self._step_tables()
-        self._build_operators(l_bar)
-        if self._same_indices(old_tables, old[3]):
-            # the captured graphs read the old tensors: the new values go
-            # into them, and the tables keep their segments
-            for was, now in zip(old_tables, self._step_tables()):
-                was.vals.copy_(now.vals)
-                was.dinv.copy_(now.dinv)
-            old[2].copy_(self._spmv_vals)
-            self._precond, self._rm, self._spmv_vals, self._spmv_cols = old
-        else:
-            for was, now in zip(old_tables, self._step_tables()):
-                if "segments" in vars(was) and torch.equal(was.cols,
-                                                           now.cols):
-                    now.segments = was.segments
-            self._pcg_cache.clear()   # new operand addresses: recapture
-        t2 = time.perf_counter()
+        with span("build") as build:
+            with span("build.factor") as factor:
+                a_bar = self._sysd.apply_ordering(a_new)
+                # factor BEFORE mutating plan state: a FactorBreakdownError
+                # from the on_breakdown policy leaves the old (working)
+                # operators in place
+                l_bar = self._factor(a_bar)
+                self._sysd.a_bar = a_bar
+            with span("build.pack") as pack:
+                old = (self._precond, self._rm, self._spmv_vals,
+                       self._spmv_cols)
+                old_tables = self._step_tables()
+                self._build_operators(l_bar)
+                if self._same_indices(old_tables, old[3]):
+                    # the captured graphs read the old tensors: the new
+                    # values go into them, and the tables keep their
+                    # segments
+                    for was, now in zip(old_tables, self._step_tables()):
+                        was.vals.copy_(now.vals)
+                        was.dinv.copy_(now.dinv)
+                    old[2].copy_(self._spmv_vals)
+                    (self._precond, self._rm, self._spmv_vals,
+                     self._spmv_cols) = old
+                else:
+                    for was, now in zip(old_tables, self._step_tables()):
+                        if "segments" in vars(was) and torch.equal(
+                                was.cols, now.cols):
+                            now.segments = was.segments
+                    # new operand addresses: recapture
+                    self._pcg_cache.clear()
         self.setup_count += 1
         self.refactor_count += 1
-        return SetupBreakdown(ordering=0.0, factor=t1 - t0, pack=t2 - t1,
-                              total=t2 - t0)
+        return SetupBreakdown(ordering=0.0, factor=factor.seconds,
+                              pack=pack.seconds, total=build.seconds)
 
     def _same_indices(self, old_tables: list,
                       old_spmv_cols: torch.Tensor) -> bool:
@@ -678,17 +702,20 @@ class SolverPlan:
         return spmv_sell_batched(self._spmv_vals, self._spmv_cols, x,
                                  self._spmv_n)
 
-    def _embed(self, b_bar: np.ndarray) -> torch.Tensor:
+    def _embed(self, b_bar: np.ndarray,
+               moved: span | None = None) -> torch.Tensor:
         """HBMC-ordered (n_padded[, B]) -> a device tensor in the solve
-        layout."""
+        layout; the upload's bytes go to ``moved.nbytes``."""
         if self._rm is not None:
             b_bar = self._rm.embed(b_bar)
-        return torch.as_tensor(b_bar, device=self.device)
+        return _upload(b_bar, self.device, moved)
 
-    def _extract(self, x_dev: torch.Tensor) -> np.ndarray:
+    def _extract(self, x_dev: torch.Tensor,
+                 moved: span | None = None) -> np.ndarray:
         """Solve layout (slab_m[, B]) on the device -> caller's ordering
-        (n[, B]); only ``x_dev``'s own elements cross to the host."""
-        x_bar = x_dev.cpu().numpy()
+        (n[, B]); only ``x_dev``'s own elements cross to the host, and
+        their bytes go to ``moved.nbytes``."""
+        x_bar = _download(x_dev, moved).numpy()
         if self._rm is not None:
             x_bar = self._rm.extract(x_bar)
         return np.asarray(x_bar[self._perm])
@@ -794,28 +821,32 @@ class SolverPlan:
         is bitwise equal to ``plan.solve_batched(b[:, None])``.  Iteration
         counts equal the single-RHS ``plan.solve`` counts.
         """
-        t0 = time.perf_counter()
-        b = np.asarray(b, dtype=self._np_dtype)
-        if b.shape != (self.n,):
-            raise ValueError(f"plan.solve_slab expects b of shape "
-                             f"({self.n},), got {b.shape}")
-        if not 0 <= slot < slab_width:
-            raise ValueError(f"slot {slot} out of range for slab_width "
-                             f"{slab_width}")
-        state = self.new_slab_state(slab_width)
-        state.r[:, slot] = self.embed_rhs(b)     # a state of our own
-        t1 = time.perf_counter()
-        state, _ = self.run_slab(state, rtol=rtol, maxiter=maxiter,
-                                 quantum=maxiter)
-        self._sync()
-        t2 = time.perf_counter()
-        x_out = self.extract_solution(state.x[:, slot])
-        relres = float(state.relres[slot])
-        res = PCGResult(x=x_out, iterations=int(state.iters[slot]),
-                        relres=relres, converged=relres < rtol,
-                        history=np.zeros((0,)),
-                        status=status_name(state.status[slot]))
-        return self._report(ICCGReport, res, x_out, t1 - t0, t2 - t1)
+        with span("solve.embed") as embed:
+            b = np.asarray(b, dtype=self._np_dtype)
+            if b.shape != (self.n,):
+                raise ValueError(f"plan.solve_slab expects b of shape "
+                                 f"({self.n},), got {b.shape}")
+            if not 0 <= slot < slab_width:
+                raise ValueError(f"slot {slot} out of range for slab_width "
+                                 f"{slab_width}")
+            state = self.new_slab_state(slab_width)
+            b_bar = np.zeros(self.n_padded, dtype=self._np_dtype)
+            b_bar[self._perm] = b
+            state.r[:, slot] = self._embed(b_bar, embed)  # a state of our own
+        with span("solve.loop") as loop:
+            state, _ = self.run_slab(state, rtol=rtol, maxiter=maxiter,
+                                     quantum=maxiter)
+            self._sync()
+        with span("solve.extract") as extract:
+            x_out = self._extract(state.x[:, slot], extract)
+            relres = float(_download(state.relres[slot], extract))
+            res = PCGResult(
+                x=x_out, iterations=int(_download(state.iters[slot], extract)),
+                relres=relres, converged=relres < rtol,
+                history=np.zeros((0,)),
+                status=status_name(_download(state.status[slot], extract)))
+        return self._report(ICCGReport, res, x_out, embed.seconds,
+                            loop.seconds)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -838,51 +869,55 @@ class SolverPlan:
         Per-call host work is exactly: embed ``b`` into the solve layout,
         extract ``x`` back into the caller's ordering.
         """
-        t0 = time.perf_counter()
-        b = np.asarray(b, dtype=self._np_dtype)
-        if b.shape != (self.n,):
-            raise ValueError(f"plan.solve expects b of shape ({self.n},), "
-                             f"got {b.shape}")
-        b_bar = np.zeros(self.n_padded, dtype=self._np_dtype)
-        b_bar[self._perm] = b
-        b_dev = self._embed(b_bar)
-        t1 = time.perf_counter()
-        x, it, relres, status, hist = _pcg_device(
-            self._spmv, self._precond, b_dev, rtol=rtol, maxiter=maxiter,
-            record_history=record_history, loops=self._pcg_cache)
-        self._sync()
-        t2 = time.perf_counter()
-        x_out = self._extract(x)
-        relres = float(relres)
-        res = PCGResult(x=x_out, iterations=int(it), relres=relres,
-                        converged=relres < rtol, history=hist.cpu().numpy(),
-                        status=status_name(status))
-        return self._report(ICCGReport, res, x_out, t1 - t0, t2 - t1)
+        with span("solve.embed") as embed:
+            b = np.asarray(b, dtype=self._np_dtype)
+            if b.shape != (self.n,):
+                raise ValueError(f"plan.solve expects b of shape ({self.n},), "
+                                 f"got {b.shape}")
+            b_bar = np.zeros(self.n_padded, dtype=self._np_dtype)
+            b_bar[self._perm] = b
+            b_dev = self._embed(b_bar, embed)
+        with span("solve.loop") as loop:
+            x, it, relres, status, hist = _pcg_device(
+                self._spmv, self._precond, b_dev, rtol=rtol, maxiter=maxiter,
+                record_history=record_history, loops=self._pcg_cache)
+            self._sync()
+        with span("solve.extract") as extract:
+            x_out = self._extract(x, extract)
+            relres = float(_download(relres, extract))
+            res = PCGResult(x=x_out, iterations=int(_download(it, extract)),
+                            relres=relres, converged=relres < rtol,
+                            history=_download(hist, extract).numpy(),
+                            status=status_name(_download(status, extract)))
+        return self._report(ICCGReport, res, x_out, embed.seconds,
+                            loop.seconds)
 
     def solve_batched(self, b: np.ndarray, rtol: float = 1e-7,
                       maxiter: int = 10_000,
                       record_history: bool = False) -> BatchedICCGReport:
         """Solve A x_j = b_j for all columns of ``b`` ((n, B)) in one PCG
         loop, reusing every cached setup product."""
-        t0 = time.perf_counter()
-        b = self._check_slab(b, "plan.solve_batched")
-        b_bar = np.zeros((self.n_padded, b.shape[1]), dtype=self._np_dtype)
-        b_bar[self._perm] = b
-        b_dev = self._embed(b_bar)
-        t1 = time.perf_counter()
-        x, iters, relres, step, status, hist = _pcg_batched_device(
-            self._spmv_batched, self._precond.apply_batched, b_dev,
-            rtol=rtol, maxiter=maxiter, record_history=record_history,
-            loops=self._pcg_cache)
-        self._sync()
-        t2 = time.perf_counter()
-        x_out = self._extract(x)
-        relres = relres.cpu().numpy()
-        res = BatchedPCGResult(x=x_out, iterations=iters.cpu().numpy(),
-                               relres=relres, converged=relres < rtol,
-                               n_steps=step, history=hist.cpu().numpy(),
-                               status=status.cpu().numpy())
-        return self._report(BatchedICCGReport, res, x_out, t1 - t0, t2 - t1)
+        with span("solve.embed") as embed:
+            b = self._check_slab(b, "plan.solve_batched")
+            b_bar = np.zeros((self.n_padded, b.shape[1]), dtype=self._np_dtype)
+            b_bar[self._perm] = b
+            b_dev = self._embed(b_bar, embed)
+        with span("solve.loop") as loop:
+            x, iters, relres, step, status, hist = _pcg_batched_device(
+                self._spmv_batched, self._precond.apply_batched, b_dev,
+                rtol=rtol, maxiter=maxiter, record_history=record_history,
+                loops=self._pcg_cache)
+            self._sync()
+        with span("solve.extract") as extract:
+            x_out = self._extract(x, extract)
+            relres = _download(relres, extract).numpy()
+            res = BatchedPCGResult(
+                x=x_out, iterations=_download(iters, extract).numpy(),
+                relres=relres, converged=relres < rtol, n_steps=step,
+                history=_download(hist, extract).numpy(),
+                status=_download(status, extract).numpy())
+        return self._report(BatchedICCGReport, res, x_out, embed.seconds,
+                            loop.seconds)
 
 
 def build_plan(a: sp.spmatrix, method: str = "hbmc", block_size: int = 32,

@@ -50,7 +50,7 @@ from ..kernels.hbmc_trisolve import (hbmc_trisolve_fused,
                                      hbmc_trisolve_shard_step,
                                      hbmc_trisolve_shard_step_batched)
 from ..kernels.ref import _sum_over_k
-from ..kernels.segments import barrier_segments
+from ..kernels.segments import table_segments
 from .hbmc import HBMCOrdering
 from .mesh import all_gather_, axis_group
 from .sell import (FusedRoundMajorTables, RoundMajorLayout, StepTables,
@@ -160,7 +160,7 @@ class DeviceFusedTables:
         plan that never solves never pays for it (about 0.2 s at the 1M
         plan's tables, ``chip_smoke.py`` phase 3); ``SolverPlan.refactor``
         carries them over while ``cols`` is unchanged."""
-        return barrier_segments(self.cols.cpu().numpy(), fused=True)
+        return table_segments(self.cols, fused=True)
 
     @property
     def n_steps(self) -> int:

@@ -21,8 +21,9 @@ import os
 import shutil
 import subprocess
 import tempfile
-import time
 from pathlib import Path
+
+from ..spans import span
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -80,7 +81,6 @@ QUERIES = {
 class KernelLibrary:
     lib: ctypes.CDLL
     path: Path
-    build_seconds: float   # 0.0 when an earlier build was loaded
     log: str               # nvcc's output (``-Xptxas -v`` register report)
 
 
@@ -144,21 +144,24 @@ def _compile(nvcc: str, sources: list[Path], out: Path) -> str:
 
 @functools.cache
 def load_library() -> KernelLibrary:
-    """Build (if needed) and load the kernel library; once per process."""
-    sources, headers = _sources()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    path = BUILD_DIR / f"libreprotorch_{_digest(sources, headers)}.so"
-    seconds, log = 0.0, ""
-    if not path.is_file():
-        t0 = time.perf_counter()
-        log = _compile(find_nvcc(), sources, path)
-        seconds = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in {**SIGNATURES, **QUERIES}.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    return KernelLibrary(lib=lib, path=path, build_seconds=seconds, log=log)
+    """Build (if needed) and load the kernel library; once per process.
+    Its time is the ``kernels.load`` span, the build's the
+    ``kernels.compile`` span inside it (none when an earlier build was
+    loaded)."""
+    with span("kernels.load"):
+        sources, headers = _sources()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        path = BUILD_DIR / f"libreprotorch_{_digest(sources, headers)}.so"
+        log = ""
+        if not path.is_file():
+            with span("kernels.compile"):
+                log = _compile(find_nvcc(), sources, path)
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in {**SIGNATURES, **QUERIES}.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+    return KernelLibrary(lib=lib, path=path, log=log)
 
 
 def call(name: str, *args) -> int:

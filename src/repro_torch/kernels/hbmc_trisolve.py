@@ -46,7 +46,7 @@ from .config import runs_plain
 from .ref import (hbmc_trisolve_batched_ref, hbmc_trisolve_fused_batched_ref,
                   hbmc_trisolve_fused_ref, hbmc_trisolve_ref,
                   hbmc_trisolve_shard_step_ref)
-from .segments import barrier_segments
+from .segments import table_segments
 
 launches = 0
 batched_launches = 0
@@ -110,7 +110,7 @@ def _segments(segments, cols: torch.Tensor, fused: bool) -> np.ndarray:
     """The segment starts to launch: ``segments`` checked, or computed from
     ``cols`` when None."""
     if segments is None:
-        return barrier_segments(cols.cpu().numpy(), fused)
+        return table_segments(cols, fused)
     seg = np.ascontiguousarray(segments, dtype=np.int32)
     n_steps = cols.shape[0]
     if (seg.ndim != 1 or seg.size == 0 or seg[0] != 0

@@ -32,7 +32,7 @@ from ..core import sell
 from ..core.sell import StepTables
 from .config import DEFAULT_DEVICE, resolve_device
 from .hbmc_trisolve import hbmc_trisolve, hbmc_trisolve_batched
-from .segments import barrier_segments
+from .segments import table_segments
 
 
 @dataclasses.dataclass
@@ -54,7 +54,7 @@ class DeviceRoundMajorTables:
         ``cols`` (one B5 / B6 launch each): computed at first use (the
         first apply) and kept; ``SolverPlan.refactor`` carries them over
         while ``cols`` is unchanged."""
-        return barrier_segments(self.cols.cpu().numpy(), fused=False)
+        return table_segments(self.cols, fused=False)
 
     @classmethod
     def from_host(cls, h: sell.RoundMajorTables,

@@ -45,6 +45,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..spans import span
+
 
 def step_dest(n_steps: int, fused: bool) -> np.ndarray:
     """Slice written by each step of a table of ``n_steps`` steps."""
@@ -140,3 +142,10 @@ def barrier_segments(cols: np.ndarray, fused: bool) -> np.ndarray:
             starts.append(int(h))
             last = int(h)
     return np.asarray(starts, dtype=np.int32)
+
+
+def table_segments(cols, fused: bool) -> np.ndarray:
+    """``barrier_segments`` of a device table's ``cols`` (a tensor): the
+    copy to the host and the analysis, timed as the ``segments`` span."""
+    with span("segments"):
+        return barrier_segments(cols.cpu().numpy(), fused)

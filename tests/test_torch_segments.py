@@ -26,7 +26,7 @@ from repro_torch.kernels import (hbmc_trisolve, hbmc_trisolve_batched,
                                  hbmc_trisolve_fused_batched,
                                  hbmc_trisolve_fused_batched_ref,
                                  hbmc_trisolve_fused_ref, hbmc_trisolve_ref)
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, segments
 from repro_torch.kernels.segments import barrier_segments, step_dest
 
 KNOBS = dict(block_size=16, w=8, device="cpu")
@@ -420,8 +420,8 @@ def test_refactor_keeps_the_tables_segments(monkeypatch, layout):
         calls.append(fused)
         return barrier_segments(cols, fused)
 
-    monkeypatch.setattr(trisolve, "barrier_segments", counted)
-    monkeypatch.setattr(ops, "barrier_segments", counted)
+    # every table's analysis runs through segments.table_segments
+    monkeypatch.setattr(segments, "barrier_segments", counted)
     a = _thermal2(32)
     b = np.random.default_rng(1).normal(size=a.shape[0])
     plan = build_plan(a, layout=layout, **KNOBS)
