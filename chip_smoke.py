@@ -71,7 +71,11 @@ its last line:
 4. Times with CUDA events after a warm-up, each beside its bound from the
    bytes it must move: per trisolve apply (B1 in turns A B C C B A: A
    B3's body at B = 1 with the segments, B B1 with the segments, C B1 one
-   launch per step; device time of each under the profiler), per SpMV,
+   launch per step; device time of each under the profiler; then B1 on
+   the thermal2 cell's plan and on the 1M laplace plan: segment lengths,
+   launches by path, the share of live gathers served on chip, and ms an
+   apply by CUDA events on replayed graphs beside the time before the
+   on-chip path), per SpMV,
    per PCG iteration, the plain versions, and the cuSPARSE CSR SpMV
    (``torch.mv`` on a CSR tensor, timed as a yardstick only; the port
    never calls it), B2 through its wrapper and through the wrapper's
@@ -630,6 +634,97 @@ def single_rhs_turns(fn, batched_fn, t, q, reps: int, device,
     log(f"  {label}: B takes {out['B'] / out['A']:.3f} of A's time and "
         f"{out['B'] / out['C']:.3f} of C's")
     return out
+
+
+#: B1 an apply (ms) before the on-chip path, every segment on one path
+#: that read its own lane's writes back through y: CUDA events over
+#: replayed graphs of 20 applies, NVIDIA H100 80GB HBM3 at 700 W
+B1_APPLY_MS_BEFORE = {"thermal2 cell": 0.2649, "laplace": 0.0868}
+
+
+def b1_replay_ms(plan, device, applies: int = 20, replays: int = 10,
+                 turns: int = 4) -> list[float]:
+    """B1 an apply (ms) on ``plan``: one CUDA graph of ``applies`` applies
+    of its preconditioner, replayed ``replays`` times a turn between CUDA
+    events, one number a turn (off the card, ``time_ms`` of one apply)."""
+    import torch
+    pre = plan._precond
+    r = torch.randn(plan.slab_m, dtype=plan.dtype, device=device)
+    if device.type != "cuda":
+        return [time_ms(lambda: pre(r), 2, device)]
+    pre(r)
+    torch.cuda.synchronize(device)
+    graph = torch.cuda.CUDAGraph()
+    gc.disable()       # no collection inside a capture
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(applies):
+                pre(r)
+    finally:
+        gc.enable()
+    return [time_ms(graph.replay, replays, device) / applies
+            for _ in range(turns)]
+
+
+def thermal2_cell_plan(device, grid: int | None = None):
+    """The benchmark's thermal2 cell plan (P1 triangles, its matrix and
+    knobs, ``portbench/configs/thermal2.json``), on an n x n grid of
+    ``grid`` where given (the CPU rehearsal)."""
+    import torch
+
+    from portbench.lib import harness, spec
+    from repro_torch.core import build_plan
+    cfg = spec.load_json_path(ROOT / "portbench" / "configs" /
+                              "thermal2.json")
+    if grid is not None:
+        cfg = {**cfg, "matrix": {**cfg["matrix"], "nx": grid, "ny": grid}}
+    knobs = dict(cfg["plan"], dtype=getattr(torch, cfg["plan"]["dtype"]))
+    return build_plan(harness.make_matrix(cfg, 0), device=device, **knobs)
+
+
+def b1_on_chip_phase(plans: dict, device) -> None:
+    """Phase 4: B1 on each plan of ``plans`` (label -> plan): its segment
+    lengths, the launches of one apply on each path
+    (``kernels.forwarding_counts()``), the share of live gathers served on
+    chip (``segments.forwarded_reads``), and B1 an apply by CUDA events on
+    replayed graphs beside the time before the on-chip path."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels import segments
+    for label, plan in plans.items():
+        t = plan._precond.tables
+        cols = t.cols.cpu().numpy()
+        n_steps, r_, _ = cols.shape
+        m = n_steps // 2 * r_
+        c = cols.astype(np.int64)
+        c = np.where(c < 0, c + m, c)
+        g = np.arange(n_steps)[:, None, None]
+        live = int(((c >= 0) & (c < np.where(g < n_steps // 2, g * r_, m)))
+                   .sum())
+        served = int(segments.forwarded_reads(cols, t.segments, True).sum())
+        lengths = np.diff(np.append(t.segments, n_steps)).tolist()
+        reset_counts()
+        plan._precond(torch.zeros(plan.slab_m, dtype=plan.dtype,
+                                  device=device))
+        paths = kernels.forwarding_counts()["hbmc_trisolve_fused"]
+        on_chip = sum(n >= segments.ON_CHIP_MIN_STEPS for n in lengths
+                      if cols.shape[2] <= segments.ON_CHIP_MAX_K)
+        want = ({"on_chip": on_chip, "plain": len(lengths) - on_chip}
+                if device.type == "cuda" else {"on_chip": 0, "plain": 0})
+        if paths != want:
+            raise AssertionError(f"{label}: launches by path {paths}, "
+                                 f"segments of {lengths} steps")
+        ms = b1_replay_ms(plan, device)
+        before = B1_APPLY_MS_BEFORE.get(label) if device.type == "cuda" \
+            else None
+        log(f"  B1 on the {label} plan {tuple(cols.shape)}: segments of "
+            f"{lengths} steps; one apply's launches by path {paths}; "
+            f"{served:,} of {live:,} live gathers served on chip "
+            f"({served / max(live, 1):.3f}); ms an apply, replayed graphs "
+            f"of 20: {' / '.join(f'{v:.4f}' for v in ms)} (before the "
+            f"on-chip path: {fmt_ms(before)})")
 
 
 def embedded(plan, rhs):
@@ -3592,6 +3687,9 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     log("B1 in turns (ms per apply):")
     tri_ms = single_rhs_turns(hbmc_trisolve_fused, hbmc_trisolve_fused_batched,
                               t, q, reps, dev, "B1")["B"]
+    log("B1's on-chip path:")
+    b1_on_chip_phase({"thermal2 cell": thermal2_cell_plan(
+        dev, None if on_card else grid), "laplace": plan}, dev)
     tri_launches = cuda_launches_per_call(lambda: hbmc_trisolve_fused(
         t.cols, t.vals, t.dinv, q, segments=t.segments))
     tri_plain_ms = time_ms(

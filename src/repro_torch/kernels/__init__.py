@@ -20,7 +20,9 @@ Each wrapper runs its CUDA kernel for a CUDA tensor and its plain version
 (``ref.py``) for a CPU tensor, and counts its calls that launched
 (``launch_counts``) and the CUDA launches those calls issued
 (``cuda_launch_counts``).  The trisolve kernels launch once per
-barrier-free segment of their table (``segments.barrier_segments``).
+barrier-free segment of their table (``segments.barrier_segments``);
+``forwarding_counts`` splits the single-RHS ones (B1, B5) by the path
+each launch took.
 Every wrapper call, on either device, also adds its operands' bytes
 (``operand_bytes``) and is one opaque node to ``repro_torch.analysis``'s
 dispatch linters (``_trace.kernel_node``).
@@ -75,6 +77,17 @@ _CUDA_COUNTED = {
 # wrapper name -> (module, counter of the operand bytes of its calls)
 _BYTES_COUNTED = {name: (_trace, f"{name}_bytes") for name in _COUNTED}
 
+# single-RHS trisolve wrapper -> path -> (module, counter of its CUDA
+# launches on that path)
+_PATH_COUNTED = {
+    "hbmc_trisolve_fused": {"on_chip": (_hbmc_trisolve_mod,
+                                        "on_chip_launches"),
+                            "plain": (_hbmc_trisolve_mod, "plain_launches")},
+    "hbmc_trisolve": {"on_chip": (_hbmc_trisolve_mod,
+                                  "sweep_on_chip_launches"),
+                      "plain": (_hbmc_trisolve_mod, "sweep_plain_launches")},
+}
+
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
@@ -100,13 +113,27 @@ def operand_bytes() -> dict[str, int]:
             _BYTES_COUNTED.items()}
 
 
+def forwarding_counts() -> dict[str, dict[str, int]]:
+    """CUDA launches of B1 (``hbmc_trisolve_fused``) and B5
+    (``hbmc_trisolve``) since the last reset, split by path: ``on_chip``
+    (a segment of at least ``segments.ON_CHIP_MIN_STEPS`` steps of a table
+    of at most ``segments.ON_CHIP_MAX_K`` entries a row, whose reads of the
+    launch's own writes are served on chip) and ``plain``; the two add up
+    to the wrapper's ``cuda_launch_counts()``."""
+    return {name: {path: getattr(mod, attr)
+                   for path, (mod, attr) in paths.items()}
+            for name, paths in _PATH_COUNTED.items()}
+
+
 def _counters() -> tuple:
     return (*_COUNTED.values(), *_CUDA_COUNTED.values(),
-            *_BYTES_COUNTED.values())
+            *_BYTES_COUNTED.values(),
+            *(c for paths in _PATH_COUNTED.values() for c in paths.values()))
 
 
 def reset_launch_counts() -> None:
-    """Zero the wrapper-call, CUDA-launch and operand-byte counters."""
+    """Zero the wrapper-call, CUDA-launch, path and operand-byte
+    counters."""
     for mod, attr in _counters():
         setattr(mod, attr, 0)
 

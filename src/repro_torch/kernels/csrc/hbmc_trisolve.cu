@@ -40,29 +40,70 @@
 //   R=32768, K=4, two colors) 3 launches per fused apply and 2 per sweep,
 //   against 64 and 32 per round.
 //
-// Single right-hand side (B1, B5): segment_single runs run_segment_single.
+// Single right-hand side (B1, B5): segment_single.
 //   It replaces the Pallas kernels repro/kernels/hbmc_trisolve.py
 //   hbmc_trisolve_fused (body _fused_kernel, FUSED) and hbmc_trisolve
 //   (body _trisolve_kernel).  Bound: bytes -- the tables once, q once, y
 //   written once; at the 1M plan in f64 134 MB per fused apply (0.040 ms at
-//   3.35 TB/s) and 75 MB per sweep (0.023 ms).  One RHS gives only R =
-//   32,768 threads, each running a chain of 16-32 dependent steps, so a
-//   step costs the latency of its table loads and of its gathers, not
-//   their bytes.  Two things shorten the chain:
-//   * before the gathers of step g a thread loads step g+1's read-only
-//     operands into registers (the first min(K, KP) entries of cols and
-//     vals, dinv, and q for a forward step), so the DRAM latency of the
-//     tables overlaps the current step's gathers and store.  Only
-//     read-only operands move; every read and write of y keeps its place
-//     in program order, so the segment argument above is unchanged.
-//     Entries past KP load in step, in k order;
-//   * those operands are read once per apply and are loaded evict-first
-//     (__ldcs), so the tables streaming through L2 do not push out the
-//     state y (8.4 MB), which the gathers read back.
-//   Loading two or three steps ahead, L2-only or evict-last accesses to y,
-//   and 64 or 256 threads a block instead of 128 gave no further gain in
-//   design runs (PERF.md, section 6).
+//   3.35 TB/s) and 75 MB per sweep (0.023 ms).  One RHS gives only R
+//   threads (19,424 on the thermal2 cell, 32,768 at the 1M plan: 4-8 warps
+//   an SM), each running a chain of 8-32 dependent steps a launch, so an
+//   apply costs its steps' latencies, not their bytes, unless each thread
+//   keeps several steps' loads in flight.
 //
+//   What held the chain: a third of the live gathers read a position the
+//   same launch wrote (0.31 on the thermal2 cell's plan, 94% of those one
+//   step back), all of the reading thread's own lane.  Read through y,
+//   which the launch writes and so is not __restrict__, each step's loads
+//   stayed behind the previous step's store in program order, and its
+//   table operands could be loaded only one step ahead.
+//
+//   The on-chip path (run_segment_on_chip; a segment of at least
+//   ON_CHIP_MIN_STEPS steps, K <= KP, entries indexed in int32): no load of
+//   y waits on a store of the same launch.  Each live gather of step g is
+//   classified from (c, lane, g0, g) (read_step):
+//   * a slice that a step of the launch before g wrote -- by the segment
+//     contract above, then, the thread's own entry -- comes from chip: the
+//     previous step's output in a register (distance 1), else a
+//     per-thread ring of the launch's outputs in shared memory,
+//     min(g1 - g0, RING_STEPS) steps deep (dynamic shared memory sized by
+//     the host).  A writer more than RING_STEPS steps back is read from y,
+//     whose store is then that many steps old;
+//   * anything else -- another lane's entry, or an own slice an earlier
+//     launch wrote -- is read-only for the launch, so it is loaded ahead:
+//     the step's row (its K columns and values as pairs where K is even,
+//     and dinv) AHEAD steps before its compute, evict-first (__ldcs, so the
+//     tables streaming through L2 do not push out y, which the gathers
+//     read back), and its gathers, q or the backward step's own y[dest],
+//     READ_AHEAD steps before.
+//   The compute then depends on registers and shared memory only.  K is a
+//   template parameter (1..KP), so a row sits in registers whole and the
+//   rings of rows and reads in flight are indexed statically: a loop
+//   unrolled by AHEAD, no register copied while its load is in flight (a
+//   copy would wait for the load).  Every store to y stays: later
+//   launches, extract and the SpMV read it.
+//
+//   Design runs (H100, PERF.md section 6), an apply on the thermal2 cell's
+//   plan: 0.261 ms plain, 0.189 on chip.  What is left: without table or
+//   gather traffic the loop still takes about 0.13 ms, the latency of its
+//   instruction stream at 4-5 warps an SM.  Loading further ahead spills
+//   (AHEAD 6, READ_AHEAD 3); 64 or 32 threads a block, ring reads for the
+//   previous step, and runtime K with a guard per entry were no faster or
+//   slower.  Staging the rows in shared memory by cp.async read 0.194, or
+//   0.174 with an evict-first L2 hint, which raised an illegal instruction
+//   in one instantiation (a sweep, f64, K = 4): not kept.
+//
+//   The plain path (run_segment_single; shorter segments, which have
+//   little or nothing to forward, and K > KP): step g+1's table operands
+//   are loaded before the gathers of step g, and every read of y keeps its
+//   place in program order.  It needs a third of the registers, which a
+//   table of many short segments and many lanes (g3_circuit's 240 rounds)
+//   needs for the occupancy that hides its gathers.
+//
+//   Both paths do the same arithmetic in the same order, so they are
+//   bitwise each other and the plain version; the host picks one per
+//   segment and counts the launches of each (the on_chip out-parameter).
+
 // B right-hand sides (B3, B6): fused_segment_batched replaces
 //   hbmc_trisolve_fused_batched (body _fused_batched_kernel);
 //   sweep_segment_batched replaces hbmc_trisolve_batched (body
@@ -105,9 +146,22 @@
 
 namespace {
 
-// Single RHS: entries of a step's table row prefetched into registers
-// (the rest, up to K, load in step).
+// Single RHS, plain path: entries of a step's table row prefetched into
+// registers (the rest, up to K, load in step); the on-chip path takes
+// tables of up to KP entries a row, K a template parameter.
 constexpr int KP = 8;
+// B1 / B5: threads a block, one per lane.
+constexpr int SINGLE_THREADS = 128;
+// On-chip path: segments of at least this many steps take it (a shorter
+// one has at most one step to forward into).
+constexpr int ON_CHIP_MIN_STEPS = 3;
+// On-chip path: the most steps of its own outputs a thread keeps in its
+// ring in shared memory (a power of two; 32 KB a block in f64).
+constexpr int RING_STEPS = 32;
+// On-chip path: a step's row loads AHEAD steps, and its other reads
+// READ_AHEAD steps, ahead of its compute.
+constexpr int AHEAD = 4;
+constexpr int READ_AHEAD = 2;
 
 // acc + vals_j * y[c_j] for one entry: the gather is masked (c in [-m, 0)
 // wraps; c outside [-m, m), or at or after lim, reads 0) and the product is
@@ -265,16 +319,206 @@ __device__ __forceinline__ void run_segment_single(
   }
 }
 
+// The KN entries of a table row at p, evict-first: in pairs (int2, float2,
+// double2) where KN is even (a row then starts on a pair's boundary), else
+// one by one.
+template <typename T> struct Pair;
+template <> struct Pair<int> { using type = int2; };
+template <> struct Pair<float> { using type = float2; };
+template <> struct Pair<double> { using type = double2; };
+
+template <typename T, int KN>
+__device__ __forceinline__ void load_row(T (&out)[KN], const T* p) {
+  if constexpr (KN % 2 == 0) {
+    const auto* p2 = reinterpret_cast<const typename Pair<T>::type*>(p);
+#pragma unroll
+    for (int j = 0; j < KN / 2; ++j) {
+      const auto v = __ldcs(p2 + j);
+      out[2 * j] = v.x;
+      out[2 * j + 1] = v.y;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < KN; ++j) out[j] = __ldcs(p + j);
+  }
+}
+
+// A step's table row (on-chip path, KN entries): its columns, values and
+// dinv, loaded AHEAD steps ahead of its compute.
+template <typename T, int KN>
+struct StepRow {
+  int c[KN];
+  T v[KN];
+  T d;
+};
+
+// Where a read of the on-chip path finds its value (StepReads::from): the
+// thread's ring at a slot below RING_STEPS, the previous step's output
+// (FROM_LAST), or the value read ahead from y (FROM_Y; 0 where the read is
+// masked).
+constexpr int FROM_LAST = RING_STEPS;
+constexpr int FROM_Y = -1;
+
+// What step g reads besides its row (on-chip path), issued READ_AHEAD
+// steps ahead of its compute: each entry's gather from y where the launch
+// does not write it, q for a forward step (evict-first) or the backward
+// step's own right-hand side y[dest] likewise, and the source of each
+// (entry KN: the right-hand side).
+template <typename T, int KN>
+struct StepReads {
+  T y[KN];
+  T q;
+  int from[KN + 1];
+};
+
+// The reads of step g of lane `lane` in the launch [g0, g1), from its
+// columns c (on-chip path; every index fits int32).  A live read (c
+// wrapped into [0, lim)) of a slice that a step of the launch before g
+// wrote is on chip: by the segment contract it is of the lane's own entry,
+// so its slice x is (p - lane) / r exactly (a float product, rounded: the
+// quotient is below S), and its latest writer w -- forward step x, or
+// backward step 2S-1-x where that is before g -- lies in the launch.  The
+// launch's writes before g are the forward slices [g0, min(g, S)) and, for
+// a backward step, the slices [2S-g, 2S-1-max(g0, S)] of the backward
+// steps.  A writer more than RING_STEPS steps back is read from y, stored
+// that many steps before.
+template <typename T, bool FUSED, int KN>
+__device__ __forceinline__ void read_step(StepReads<T, KN>& rd,
+                                          const int (&c)[KN],
+                                          const T* __restrict__ q, const T* y,
+                                          int g, int g0, int s, int r,
+                                          float rinv, int lane) {
+  const int m = s * r;
+  const bool fwd = !FUSED || g < s;
+  const int lim = fwd ? g * r : m;
+  // positions written in the launch before g: forward [lo_f, hi_f),
+  // backward [lo_b, hi_b)
+  const int lo_f = g0 * r, hi_f = fwd ? g * r : m;
+  const int lo_b = fwd ? 0 : (2 * s - g) * r;
+  const int hi_b = fwd ? 0 : (2 * s - (g0 > s ? g0 : s)) * r;
+#pragma unroll
+  for (int j = 0; j < KN; ++j) {
+    const int p = c[j] < 0 ? c[j] + m : c[j];
+    const bool live = p >= 0 && p < lim;
+    const int x = __float2int_rn(__int2float_rn(p - lane) * rinv);
+    const bool back = p >= lo_b && p < hi_b;
+    const int w = back ? 2 * s - 1 - x : x;
+    const bool on = live && (back || p >= lo_f && p < hi_f) &&
+                    g - w <= RING_STEPS;
+    rd.from[j] = !on ? FROM_Y
+                     : w == g - 1 ? FROM_LAST : (w - g0) & (RING_STEPS - 1);
+    T yj = T(0);
+    if (live && !on) yj = y[p];
+    rd.y[j] = yj;
+  }
+  if (fwd) {
+    rd.q = __ldcs(q + g * r + lane);
+  } else {   // y[dest], written by forward step x
+    const int x = 2 * s - 1 - g;
+    const bool on = x >= g0 && g - x <= RING_STEPS;
+    rd.from[KN] = !on ? FROM_Y
+                      : x == g - 1 ? FROM_LAST : (x - g0) & (RING_STEPS - 1);
+    T qj = T(0);
+    if (!on) qj = y[x * r + lane];
+    rd.q = qj;
+  }
+}
+
+// A read's value from its source (on-chip path): `loaded` (FROM_Y),
+// `last` (the previous step's output) or the thread's ring ring_t.
+template <typename T>
+__device__ __forceinline__ T sourced(int from, T loaded, T last,
+                                     const T* ring_t) {
+  T v = loaded;
+  if (from == FROM_LAST) v = last;
+  else if (from != FROM_Y) v = ring_t[from * SINGLE_THREADS];
+  return v;
+}
+
+// Steps [g0, g1) of a fused (FUSED) or single-sweep table of KN entries a
+// row for one RHS, one thread per lane, on the on-chip path.  Step g's row
+// loads at the compute of step g - AHEAD, its other reads issue at the
+// compute of step g - READ_AHEAD, and its output goes to y, to the ring
+// and to a register; its arithmetic is run_step's.  The rows and reads of
+// the steps in flight sit in rings indexed by (g - g0) % AHEAD, in a loop
+// unrolled by AHEAD, so no register is copied while its load is in flight
+// (the copy would wait for the load).  The ring (ring_t: this thread's
+// column of the block's) holds min(g1 - g0, RING_STEPS) outputs.
+template <typename T, bool FUSED, int KN>
+__device__ __forceinline__ void run_segment_on_chip(
+    const int32_t* __restrict__ cols, const T* __restrict__ vals,
+    const T* __restrict__ dinv, const T* __restrict__ q, T* y, T* ring,
+    int g0, int g1, int s, int r) {
+  static_assert(READ_AHEAD < AHEAD, "a row arrives before its reads");
+  const int lane = blockIdx.x * SINGLE_THREADS + threadIdx.x;
+  if (lane >= r) return;
+  T* ring_t = ring + threadIdx.x;
+  const float rinv = 1.0f / (float)r;
+  StepRow<T, KN> rows[AHEAD];
+  StepReads<T, KN> rd[AHEAD];
+  auto load_step_row = [&](StepRow<T, KN>& w, int g) {
+    const int row = g * r + lane;
+    load_row<int, KN>(w.c, cols + row * KN);
+    load_row<T, KN>(w.v, vals + row * KN);
+    w.d = __ldcs(dinv + row);
+  };
+#pragma unroll
+  for (int i = 0; i < AHEAD; ++i)
+    if (g0 + i < g1) load_step_row(rows[i], g0 + i);
+#pragma unroll
+  for (int i = 0; i < READ_AHEAD; ++i)
+    if (g0 + i < g1)
+      read_step<T, FUSED, KN>(rd[i], rows[i].c, q, y, g0 + i, g0, s, r, rinv,
+                              lane);
+  T last = T(0);
+  for (int base = g0; base < g1; base += AHEAD) {
+#pragma unroll
+    for (int i = 0; i < AHEAD; ++i) {
+      const int g = base + i;
+      if (g < g1) {
+        const int ahead = (i + READ_AHEAD) % AHEAD;
+        if (g + READ_AHEAD < g1)
+          read_step<T, FUSED, KN>(rd[ahead], rows[ahead].c, q, y,
+                                  g + READ_AHEAD, g0, s, r, rinv, lane);
+        const StepRow<T, KN> row = rows[i];
+        if (g + AHEAD < g1) load_step_row(rows[i], g + AHEAD);
+        const StepReads<T, KN>& cur = rd[i];
+        T acc = T(0);
+#pragma unroll
+        for (int j = 0; j < KN; ++j)
+          acc = add_rn(acc, mul_rn(row.v[j], sourced(cur.from[j], cur.y[j],
+                                                     last, ring_t)));
+        const T q_cur = FUSED && g >= s
+                            ? sourced(cur.from[KN], cur.q, last, ring_t)
+                            : cur.q;
+        const T out = (q_cur - acc) * row.d;
+        y[(FUSED && g >= s ? 2 * s - 1 - g : g) * r + lane] = out;
+        ring_t[((g - g0) & (RING_STEPS - 1)) * SINGLE_THREADS] = out;
+        last = out;
+      }
+    }
+  }
+}
+
 // B1 (FUSED: a segment of the fused table, 2S steps, backward steps
 // g >= S) and B5 (a segment of one sweep's table, S steps, step g writes
-// slice g).
-template <typename T, bool FUSED>
-__global__ void segment_single(const int32_t* __restrict__ cols,
-                               const T* __restrict__ vals,
-                               const T* __restrict__ dinv,
-                               const T* __restrict__ q, T* y, int g0, int g1,
-                               int s, int r, int k) {
-  run_segment_single<T, FUSED>(cols, vals, dinv, q, y, g0, g1, s, r, k);
+// slice g): on the on-chip path for rows of KN entries (KN = K), or on the
+// plain path (KN = 0, any K).
+template <typename T, bool FUSED, int KN>
+__global__ void __launch_bounds__(SINGLE_THREADS)
+    segment_single(const int32_t* __restrict__ cols,
+                   const T* __restrict__ vals, const T* __restrict__ dinv,
+                   const T* __restrict__ q, T* y, int g0, int g1, int s, int r,
+                   int k) {
+  // the on-chip path's ring: min(g1 - g0, RING_STEPS) x SINGLE_THREADS
+  // values, sized at the launch
+  extern __shared__ __align__(16) unsigned char ring_bytes[];
+  if constexpr (KN > 0)
+    run_segment_on_chip<T, FUSED, KN>(cols, vals, dinv, q, y,
+                                      reinterpret_cast<T*>(ring_bytes), g0,
+                                      g1, s, r);
+  else
+    run_segment_single<T, FUSED>(cols, vals, dinv, q, y, g0, g1, s, r, k);
 }
 
 // B3: a segment of the fused table (2S steps, backward steps g >= S).
@@ -377,18 +621,49 @@ int launch_segments(const int32_t* cols, const T* vals, const T* dinv,
       });
 }
 
-// B1 / B5: 128 threads a block, one per lane, so the 1M plan's 32,768
-// lanes make 256 blocks over the 132 SMs.
+// B1 / B5 on the on-chip path, rows of KN entries: one launch, its ring
+// min(g1 - g0, RING_STEPS) steps deep.
+template <typename T, bool FUSED, int KN>
+void launch_on_chip(const int32_t* cols, const T* vals, const T* dinv,
+                    const T* q, T* y, int g0, int g1, int s, int r,
+                    unsigned blocks, cudaStream_t st) {
+  const int depth = g1 - g0 < RING_STEPS ? g1 - g0 : RING_STEPS;
+  const size_t ring = (size_t)depth * SINGLE_THREADS * sizeof(T);
+  segment_single<T, FUSED, KN><<<blocks, SINGLE_THREADS, ring, st>>>(
+      cols, vals, dinv, q, y, g0, g1, s, r, KN);
+}
+
+// B1 / B5: SINGLE_THREADS a block, one per lane, so the 1M plan's 32,768
+// lanes make 256 blocks over the 132 SMs.  A segment of at least
+// ON_CHIP_MIN_STEPS steps of a table of K <= KP entries a row, whose
+// entries count below 2^31, takes the on-chip path; the rest the plain
+// one.  *on_chip counts the on-chip launches.
 template <typename T, bool FUSED>
 int launch_single(const int32_t* cols, const T* vals, const T* dinv,
                   const T* q, T* y, int s, int r, int k, const int32_t* segs,
-                  int nseg, cudaStream_t st, int* launched) {
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((r + threads - 1) / threads);
+                  int nseg, cudaStream_t st, int* on_chip, int* launched) {
+  const unsigned blocks =
+      (unsigned)((r + SINGLE_THREADS - 1) / SINGLE_THREADS);
+  const bool fits =
+      k >= 1 && k <= KP && (int64_t)(FUSED ? 2 * s : s) * r * k < (1ll << 31);
   return for_each_segment(
       segs, nseg, FUSED ? 2 * s : s, launched, [&](int g0, int g1) {
-        segment_single<T, FUSED><<<blocks, threads, 0, st>>>(
-            cols, vals, dinv, q, y, g0, g1, s, r, k);
+        if (!fits || g1 - g0 < ON_CHIP_MIN_STEPS) {
+          segment_single<T, FUSED, 0><<<blocks, SINGLE_THREADS, 0, st>>>(
+              cols, vals, dinv, q, y, g0, g1, s, r, k);
+          return;
+        }
+        ++*on_chip;
+        switch (k) {
+          case 1: return launch_on_chip<T, FUSED, 1>(cols, vals, dinv, q, y, g0, g1, s, r, blocks, st);
+          case 2: return launch_on_chip<T, FUSED, 2>(cols, vals, dinv, q, y, g0, g1, s, r, blocks, st);
+          case 3: return launch_on_chip<T, FUSED, 3>(cols, vals, dinv, q, y, g0, g1, s, r, blocks, st);
+          case 4: return launch_on_chip<T, FUSED, 4>(cols, vals, dinv, q, y, g0, g1, s, r, blocks, st);
+          case 5: return launch_on_chip<T, FUSED, 5>(cols, vals, dinv, q, y, g0, g1, s, r, blocks, st);
+          case 6: return launch_on_chip<T, FUSED, 6>(cols, vals, dinv, q, y, g0, g1, s, r, blocks, st);
+          case 7: return launch_on_chip<T, FUSED, 7>(cols, vals, dinv, q, y, g0, g1, s, r, blocks, st);
+          default: return launch_on_chip<T, FUSED, KP>(cols, vals, dinv, q, y, g0, g1, s, r, blocks, st);
+        }
       });
 }
 
@@ -397,29 +672,32 @@ int launch_single(const int32_t* cols, const T* vals, const T* dinv,
 // Every entry point: y (S*R[, B]) may hold any values on entry and holds
 // the result on return (stream-ordered); segs is a host array of the nseg
 // ascending segment starts (segs[0] == 0), one launch per segment;
-// *launched is incremented once per kernel launch issued; the return value
-// is the first CUDA error.
+// *launched is incremented once per kernel launch issued, and for B1 / B5
+// *on_chip once per launch on the on-chip path; the return value is the
+// first CUDA error.
 
 extern "C" int hbmc_trisolve_fused_f64(const void* cols, const void* vals,
                                        const void* dinv, const void* q,
                                        void* y, int s, int r, int k,
                                        const void* segs, int nseg,
-                                       void* stream, int* launched) {
+                                       void* stream, int* on_chip,
+                                       int* launched) {
   return launch_single<double, true>(
       (const int32_t*)cols, (const double*)vals, (const double*)dinv,
       (const double*)q, (double*)y, s, r, k, (const int32_t*)segs, nseg,
-      (cudaStream_t)stream, launched);
+      (cudaStream_t)stream, on_chip, launched);
 }
 
 extern "C" int hbmc_trisolve_fused_f32(const void* cols, const void* vals,
                                        const void* dinv, const void* q,
                                        void* y, int s, int r, int k,
                                        const void* segs, int nseg,
-                                       void* stream, int* launched) {
+                                       void* stream, int* on_chip,
+                                       int* launched) {
   return launch_single<float, true>(
       (const int32_t*)cols, (const float*)vals, (const float*)dinv,
       (const float*)q, (float*)y, s, r, k, (const int32_t*)segs, nseg,
-      (cudaStream_t)stream, launched);
+      (cudaStream_t)stream, on_chip, launched);
 }
 
 extern "C" int hbmc_trisolve_fused_batched_f64(
@@ -445,21 +723,23 @@ extern "C" int hbmc_trisolve_fused_batched_f32(
 extern "C" int hbmc_trisolve_f64(const void* cols, const void* vals,
                                  const void* dinv, const void* q, void* y,
                                  int s, int r, int k, const void* segs,
-                                 int nseg, void* stream, int* launched) {
+                                 int nseg, void* stream, int* on_chip,
+                                 int* launched) {
   return launch_single<double, false>(
       (const int32_t*)cols, (const double*)vals, (const double*)dinv,
       (const double*)q, (double*)y, s, r, k, (const int32_t*)segs, nseg,
-      (cudaStream_t)stream, launched);
+      (cudaStream_t)stream, on_chip, launched);
 }
 
 extern "C" int hbmc_trisolve_f32(const void* cols, const void* vals,
                                  const void* dinv, const void* q, void* y,
                                  int s, int r, int k, const void* segs,
-                                 int nseg, void* stream, int* launched) {
+                                 int nseg, void* stream, int* on_chip,
+                                 int* launched) {
   return launch_single<float, false>(
       (const int32_t*)cols, (const float*)vals, (const float*)dinv,
       (const float*)q, (float*)y, s, r, k, (const int32_t*)segs, nseg,
-      (cudaStream_t)stream, launched);
+      (cudaStream_t)stream, on_chip, launched);
 }
 
 extern "C" int hbmc_trisolve_batched_f64(const void* cols, const void* vals,

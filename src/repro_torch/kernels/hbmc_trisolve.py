@@ -14,10 +14,15 @@ For a CUDA tensor each wrapper launches its hand-written kernel in
 per barrier-free segment of its table (``segments.barrier_segments``), the
 kernel boundary being the only barrier; ``segments=np.arange(G)`` gives one
 launch per step, the reference's round barrier.  The single-RHS kernels
-load the next step's table entries ahead of the current step's gathers;
-the batched ones run the plain per-step loop.  For a CPU tensor each
-wrapper runs the plain PyTorch version in ``ref``, whose result is the
-step-major one, and ignores ``segments``.
+take, for a segment of at least ``segments.ON_CHIP_MIN_STEPS`` steps of a
+table of at most ``segments.ON_CHIP_MAX_K`` entries a row, the on-chip
+path: a thread serves the reads of what it wrote in the same launch from
+registers and shared memory and loads everything else ahead
+(``segments.forwarded_reads`` marks the reads it serves); other segments
+take the plain path, which loads the next step's table entries ahead of
+the current step's gathers.  The batched ones run the plain per-step
+loop.  For a CPU tensor each wrapper runs the plain PyTorch version in
+``ref``, whose result is the step-major one, and ignores ``segments``.
 
 ``launches`` / ``batched_launches`` count the wrapper calls that launched
 the fused single-RHS / batched CUDA kernel, ``sweep_launches`` /
@@ -25,7 +30,9 @@ the fused single-RHS / batched CUDA kernel, ``sweep_launches`` /
 counters beside them (``cuda_launches``, ``batched_cuda_launches``,
 ``sweep_cuda_launches``, ``sweep_batched_cuda_launches``) count the CUDA
 launches those calls issued, as the C entry points report them: one per
-segment.
+segment.  ``on_chip_launches`` / ``plain_launches`` split B1's CUDA
+launches by path, ``sweep_on_chip_launches`` / ``sweep_plain_launches``
+B5's.
 
 ``hbmc_trisolve_shard_step`` and ``hbmc_trisolve_shard_step_batched`` run
 one fused step of one rank's lane block of a fused table sharded over a
@@ -36,6 +43,8 @@ with an all-gather of the step's slice): one launch per call, counted in
 counters.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -60,6 +69,10 @@ shard_launches = 0
 shard_batched_launches = 0
 shard_cuda_launches = 0
 shard_batched_cuda_launches = 0
+on_chip_launches = 0
+plain_launches = 0
+sweep_on_chip_launches = 0
+sweep_plain_launches = 0
 
 _FLOATS = (torch.float64, torch.float32)
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
@@ -87,23 +100,27 @@ def _check(cols, vals, dinv, q) -> None:
 
 
 def _run(entry: str, cols, vals, dinv, q, segments,
-         fused: bool) -> tuple[torch.Tensor, int]:
+         fused: bool) -> tuple[torch.Tensor, int, int]:
     """Check the operands and ``segments`` (``_segments``) and launch
     ``entry`` once per segment into a new (S*R[, B]) buffer, which the
-    kernels need no zeros in; returns it and the number of CUDA launches."""
+    kernels need no zeros in; returns it, the number of CUDA launches and,
+    for the single-RHS kernels (q of two dims), how many of those took the
+    on-chip path (0 for the batched ones)."""
     _check(cols, vals, dinv, q)
     seg = _segments(segments, cols, fused)
     s_, r_, k_ = q.shape[0], q.shape[1], cols.shape[2]
     shape = (s_ * r_,) + tuple(q.shape[2:])
     y = torch.empty(shape, dtype=vals.dtype, device=q.device)
     if not y.numel():
-        return y, 0
+        return y, 0, 0
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    on_chip = ctypes.c_int(0)
+    single = () if q.dim() == 3 else (ctypes.byref(on_chip),)
     n = _build.call(f"{entry}_{_SUFFIX[vals.dtype]}", cols.data_ptr(),
                     vals.data_ptr(), dinv.data_ptr(), q.data_ptr(),
                     y.data_ptr(), s_, r_, k_, *q.shape[2:], seg.ctypes.data,
-                    int(seg.size), stream)
-    return y, n
+                    int(seg.size), stream, *single)
+    return y, n, on_chip.value
 
 
 def _segments(segments, cols: torch.Tensor, fused: bool) -> np.ndarray:
@@ -149,16 +166,19 @@ def hbmc_trisolve_fused(cols: torch.Tensor, vals: torch.Tensor,
     Returns:
       z: (S*R,) solution in round-major layout (holes stay 0).
     """
-    global launches, cuda_launches
+    global launches, cuda_launches, on_chip_launches, plain_launches
     s2, r_, _ = cols.shape
     if q.shape != (s2 // 2, r_):
         raise ValueError(f"q shape {tuple(q.shape)} != rounds shape "
                          f"{(s2 // 2, r_)}")
     if runs_plain(q):
         return hbmc_trisolve_fused_ref(cols, vals, dinv, q)
-    y, n = _run("hbmc_trisolve_fused", cols, vals, dinv, q, segments, True)
+    y, n, on_chip = _run("hbmc_trisolve_fused", cols, vals, dinv, q,
+                         segments, True)
     launches += 1
     cuda_launches += n
+    on_chip_launches += on_chip
+    plain_launches += n - on_chip
     return y
 
 
@@ -180,8 +200,8 @@ def hbmc_trisolve_fused_batched(cols: torch.Tensor, vals: torch.Tensor,
                          "(B,)")
     if runs_plain(q):
         return hbmc_trisolve_fused_batched_ref(cols, vals, dinv, q)
-    y, n = _run("hbmc_trisolve_fused_batched", cols, vals, dinv, q,
-                segments, True)
+    y, n, _ = _run("hbmc_trisolve_fused_batched", cols, vals, dinv, q,
+                   segments, True)
     batched_launches += 1
     batched_cuda_launches += n
     return y
@@ -206,15 +226,19 @@ def hbmc_trisolve(cols: torch.Tensor, vals: torch.Tensor, dinv: torch.Tensor,
     Returns:
       y: (S*R,) solution in round-major layout.
     """
-    global sweep_launches, sweep_cuda_launches
+    global sweep_launches, sweep_cuda_launches, sweep_on_chip_launches
+    global sweep_plain_launches
     if q.shape != cols.shape[:2]:
         raise ValueError(f"q shape {tuple(q.shape)} != rounds shape "
                          f"{tuple(cols.shape[:2])}")
     if runs_plain(q):
         return hbmc_trisolve_ref(cols, vals, dinv, q)
-    y, n = _run("hbmc_trisolve", cols, vals, dinv, q, segments, False)
+    y, n, on_chip = _run("hbmc_trisolve", cols, vals, dinv, q, segments,
+                         False)
     sweep_launches += 1
     sweep_cuda_launches += n
+    sweep_on_chip_launches += on_chip
+    sweep_plain_launches += n - on_chip
     return y
 
 
@@ -235,8 +259,8 @@ def hbmc_trisolve_batched(cols: torch.Tensor, vals: torch.Tensor,
                          f"{tuple(cols.shape[:2])} + (B,)")
     if runs_plain(q):
         return hbmc_trisolve_batched_ref(cols, vals, dinv, q)
-    y, n = _run("hbmc_trisolve_batched", cols, vals, dinv, q, segments,
-                False)
+    y, n, _ = _run("hbmc_trisolve_batched", cols, vals, dinv, q, segments,
+                   False)
     sweep_batched_launches += 1
     sweep_batched_cuda_launches += n
     return y

@@ -40,12 +40,28 @@ the ties in ascending order (interval stabbing).  The work is vectorised
 over the table's entries and its (step, slice) pairs, with a loop over
 steps only: 0.18-0.25 s for the (64, 32768, 4) table of a 1M-unknown
 plan on one host core (``chip_smoke.py`` phase 3).
+
+The same contract lets the single-RHS kernels (B1, B5) serve on chip every
+read of a value the same launch wrote: by the tie rule such a read is of
+the thread's own lane, and its latest writer runs earlier in the thread's
+own loop.  ``forwarded_reads`` marks those reads as the kernels decide
+them; it is the host twin of their rule, for the tests and
+``chip_smoke.py``, never the solve path.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..spans import span
+
+
+#: The single-RHS kernels' on-chip path (``csrc/hbmc_trisolve.cu``): a
+#: segment of at least ON_CHIP_MIN_STEPS steps of a table of at most
+#: ON_CHIP_MAX_K entries a row (``KP`` there) whose entries count below
+#: 2^31 takes it, and a thread's ring keeps its last RING_STEPS outputs.
+ON_CHIP_MIN_STEPS = 3
+ON_CHIP_MAX_K = 8
+RING_STEPS = 32
 
 
 def step_dest(n_steps: int, fused: bool) -> np.ndarray:
@@ -149,3 +165,50 @@ def table_segments(cols, fused: bool) -> np.ndarray:
     copy to the host and the analysis, timed as the ``segments`` span."""
     with span("segments"):
         return barrier_segments(cols.cpu().numpy(), fused)
+
+
+def forwarded_reads(cols: np.ndarray, segments, fused: bool) -> np.ndarray:
+    """Which live gathers the single-RHS kernels serve on chip.
+
+    Args:
+      cols: (G, R, K) gather positions of a round-major table (as for
+        ``barrier_segments``).
+      segments: the ascending start steps the table is launched by.
+      fused: whether ``cols`` is a fused table (G = 2S) or one sweep.
+
+    Returns:
+      bool (G, R, K): True where the gather of step g, lane l, entry k is
+      live (``c`` wraps into ``[0, S*R)``, and for a forward step lies
+      before slice g) and its launch serves it from registers or shared
+      memory instead of y: the table has at most ``ON_CHIP_MAX_K`` entries
+      a row and fewer than 2^31 in all, the segment has at least
+      ``ON_CHIP_MIN_STEPS`` steps, the position is lane l's own, and its
+      latest writer before g
+      -- step x for slice x, or the fused table's backward step 2S-1-x if
+      that is before g -- lies in the segment, at most ``RING_STEPS``
+      steps back.  A backward step's read of its own right-hand side is not
+      a gather and is not counted.
+    """
+    cols = np.asarray(cols)
+    n_steps, r_, k_ = cols.shape
+    if k_ > ON_CHIP_MAX_K or cols.size >= 2**31:
+        return np.zeros(cols.shape, dtype=bool)
+    n_slices = n_steps // 2 if fused else n_steps
+    m = n_slices * r_
+    starts = np.asarray(segments, dtype=np.int64)
+    bounds = np.append(starts, n_steps)
+    seg = np.searchsorted(starts, np.arange(n_steps), side="right") - 1
+    g0 = starts[seg][:, None, None]
+    long_ = (bounds[seg + 1] - starts[seg] >= ON_CHIP_MIN_STEPS)[:, None, None]
+    g = np.arange(n_steps, dtype=np.int64)[:, None, None]
+    c = cols.astype(np.int64)
+    c = np.where(c < 0, c + m, c)
+    lim = np.where((g < n_slices) | (not fused), g * r_, m)
+    live = (c >= 0) & (c < lim)
+    x, lane = np.divmod(np.where(live, c, 0), r_)
+    own = live & (lane == np.arange(r_)[None, :, None])
+    w = x
+    if fused:
+        back = 2 * n_slices - 1 - x
+        w = np.where(back < g, back, x)
+    return own & long_ & (w >= g0) & (g - w <= RING_STEPS)

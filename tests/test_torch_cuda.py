@@ -9,7 +9,9 @@ Tolerance: max relative error 1e-12 in f64, 1e-5 in f32 -- the kernels sum
 over K in order with each product rounded, the plain versions use PyTorch's
 reduction order.
 """
+import importlib.util
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -35,10 +37,12 @@ from repro_torch.kernels import (hbmc_trisolve, hbmc_trisolve_batched,
                                  hbmc_trisolve_shard_step_ref, sell_spmv,
                                  sell_spmv_batched, sell_spmv_batched_ref,
                                  sell_spmv_block, sell_spmv_ref)
+from repro_torch.kernels import segments
 from repro_torch.kernels.segments import barrier_segments, step_dest
 from repro_torch.serve import SolverService, VirtualClock
 
 from _torch_mesh_worker import shard_apply
+from test_torch_segments import _own_chains
 
 pytestmark = pytest.mark.cuda
 
@@ -576,6 +580,99 @@ def test_segment_arguments_are_checked(cuda):
                           q[..., 0].contiguous(), segments=bad)
 
 
+def _paths(starts, n_steps, k):
+    """The launches of a cut on each path of B1 / B5: ``on_chip`` for a
+    segment of at least ``ON_CHIP_MIN_STEPS`` steps of a table of at most
+    ``ON_CHIP_MAX_K`` entries a row, else ``plain``."""
+    lengths = np.diff(np.append(starts, n_steps))
+    on_chip = int((lengths >= segments.ON_CHIP_MIN_STEPS).sum()
+                  if k <= segments.ON_CHIP_MAX_K else 0)
+    return {"on_chip": on_chip, "plain": int(lengths.size) - on_chip}
+
+
+def _fem2d_p1(n):
+    """The thermal2 cell's matrix family (P1 triangles) on an n x n grid."""
+    path = (Path(__file__).resolve().parents[1] / "portbench" / "matrices"
+            / "fem2d_p1_lognormal.py")
+    spec = importlib.util.spec_from_file_location("_fem2d_p1", path)
+    fem = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fem)
+    return fem.make({"nx": n, "ny": n, "sigma": 1.0},
+                    np.random.default_rng(0))
+
+
+def _on_chip_cases(case):
+    """(label, fused, (cols, vals, dinv) as numpy, cuts) of one case."""
+    kind, k = case
+    if kind == "p1":
+        a = _fem2d_p1(300)
+        kw = dict(block_size=16, w=8, device="cpu")
+        t = build_plan(a, **kw)._precond.tables
+        kp = build_plan(a, layout="index", **kw)._precond.kernel
+        return [(lab, fused, (x.cols.numpy(), x.vals.numpy(),
+                              x.dinv.numpy()), [x.segments])
+                for lab, x, fused in (("fused", t, True),
+                                      ("fwd", kp.fwd, False),
+                                      ("bwd", kp.bwd, False))]
+    s, r = 40, 300
+    rng = np.random.default_rng(k)
+    got = []
+    for fused in (True, False):
+        n_steps = 2 * s if fused else s
+        cols = _own_chains(s, r, k, fused, seed=k)
+        tab = (cols, 0.3 * rng.normal(size=cols.shape),
+               rng.uniform(0.5, 1.5, size=cols.shape[:2]))
+        assert barrier_segments(cols, fused).tolist() == [0]
+        cuts = [np.array([0]), np.arange(0, n_steps, 2),
+                np.arange(0, n_steps, 16), np.arange(0, n_steps, 32),
+                np.array([0, 1, 3, 6])]
+        if fused:      # one launch across the turn, one per half
+            cuts += [np.array([0, s - 9, s + 23]), np.array([0, s])]
+        got.append((f"chains fused={fused}", fused, tab, cuts))
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("case", [("chains", 3), ("chains", 6),
+                                  ("chains", 8), ("chains", 11), ("p1", 0)],
+                         ids=lambda c: f"{c[0]}-{c[1]}")
+def test_single_rhs_on_chip_path_bitwise_plain_and_per_step_cut(cuda, case,
+                                                                dtype):
+    """B1 and B5 on the on-chip path: own-lane chains at distances from 1
+    to past the ring (RING_STEPS), launches of 1, 2, 3, 16, 32 and 2S
+    steps and one across the fused table's turn, K odd, even, at
+    ON_CHIP_MAX_K (8) and past it (11: the plain path); and the
+    P1-triangle plan of block 16, w 8 whose launches run 8-32 steps, as the
+    thermal2 cell's.  Bitwise the plain version and the per-step cut (every
+    launch on the plain path), with the launches of each path counted."""
+    for lab, fused, tab, cuts in _on_chip_cases(case):
+        cols, vals, dinv = (torch.tensor(x, device=cuda) for x in tab)
+        vals, dinv = vals.to(dtype), dinv.to(dtype)
+        n_steps = cols.shape[0]
+        s = n_steps // 2 if fused else n_steps
+        q = torch.tensor(np.random.default_rng(len(lab)).normal(
+            size=(s, cols.shape[1])), device=cuda).to(dtype)
+        fn, ref = ((hbmc_trisolve_fused, hbmc_trisolve_fused_ref) if fused
+                   else (hbmc_trisolve, hbmc_trisolve_ref))
+        name = "hbmc_trisolve_fused" if fused else "hbmc_trisolve"
+        want = ref(cols, vals, dinv, q)
+        kernels.reset_launch_counts()
+        step = fn(cols, vals, dinv, q, segments=np.arange(n_steps))
+        assert kernels.forwarding_counts()[name] == {"on_chip": 0,
+                                                     "plain": n_steps}
+        assert torch.equal(step, want), lab
+        served = 0
+        for cut in cuts:
+            kernels.reset_launch_counts()
+            z = fn(cols, vals, dinv, q, segments=cut)
+            assert torch.equal(z, want), (lab, cut.tolist())
+            assert kernels.forwarding_counts()[name] == _paths(
+                cut, n_steps, cols.shape[2])
+            served += segments.forwarded_reads(tab[0], cut, fused).sum()
+        assert (served > 0) == (cols.shape[2] <= segments.ON_CHIP_MAX_K), lab
+
+
 def test_cuda_launch_counts_per_kernel(cuda):
     """The CUDA launches each wrapper reports: one per segment of B1 / B3 /
     B5 / B6, one per call of B2 / B4 and of the shard steps;
@@ -616,6 +713,12 @@ def test_cuda_launch_counts_per_kernel(cuda):
         "hbmc_trisolve_shard_step_batched": 1, "sell_spmv_block": 1}
     assert kernels.launch_counts() == {
         **dict.fromkeys(kernels.launch_counts(), 1), "sell_spmv_batched": 2}
+    assert kernels.forwarding_counts() == {
+        "hbmc_trisolve_fused": _paths(t.segments, 2 * t.n_steps,
+                                      t.cols.shape[2]),
+        "hbmc_trisolve": _paths(sw.segments, sw.cols.shape[0],
+                                sw.cols.shape[2])}
+    assert kernels.forwarding_counts()["hbmc_trisolve_fused"]["on_chip"] > 0
 
 
 @pytest.mark.parametrize("fused", [True, False])

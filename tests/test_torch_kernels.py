@@ -19,6 +19,7 @@ from repro.kernels import hbmc_trisolve_fused as j_trisolve_fused
 from repro.kernels import sell_spmv as j_sell_spmv
 from repro.kernels.ref import hbmc_trisolve_fused_ref as j_trisolve_ref
 from repro.kernels.ref import sell_spmv_ref as j_sell_spmv_ref
+from repro_torch import kernels
 from repro_torch.core import build_plan, paper_problem
 from repro_torch.kernels import (hbmc_trisolve, hbmc_trisolve_fused,
                                  hbmc_trisolve_shard_step, launch_counts,
@@ -198,6 +199,9 @@ def test_cpu_wrappers_count_no_launch():
                                "hbmc_trisolve_shard_step": 0,
                                "hbmc_trisolve_shard_step_batched": 0,
                                "sell_spmv_block": 0}
+    assert kernels.forwarding_counts() == {
+        "hbmc_trisolve_fused": {"on_chip": 0, "plain": 0},
+        "hbmc_trisolve": {"on_chip": 0, "plain": 0}}
 
 
 def test_wrappers_raise_off_cpu_and_cuda():

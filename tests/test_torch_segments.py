@@ -12,6 +12,10 @@ not, which shows that it catches a missing barrier.  The kernels themselves
 are held to the same bits on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
 """
+import importlib.util
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -448,3 +452,153 @@ def test_refactor_keeps_the_tables_segments(monkeypatch, layout):
     again = plan.solve(2.0 * b)
     assert len(calls) == n_calls                   # the analysis did not rerun
     assert again.result.status == "CONVERGED"
+
+
+# -- the single-RHS kernels' on-chip reads (segments.forwarded_reads) --------
+
+def _own_chains(s, r, k, fused, seed):
+    """Tables whose every read is of the reading lane's own entries (or the
+    hole), at random distances back to the first step: one segment, any
+    cut valid, and chains past ``RING_STEPS``; a third of the positions in
+    their wrapped form."""
+    rng = np.random.default_rng(seed)
+    n_steps = 2 * s if fused else s
+    m = s * r
+    step = np.arange(n_steps)[:, None, None]
+    back = fused & (step >= s)
+    hi = np.where(back, s, np.maximum(step, 1))
+    slc = (rng.random((n_steps, r, k)) * hi).astype(np.int64)
+    cols = slc * r + np.arange(r)[None, :, None]
+    cols = np.where(rng.random(cols.shape) < 0.3, cols - m, cols)
+    hole = (rng.random(cols.shape) < 0.2) | ((step == 0) & ~back)
+    return np.where(hole, m, cols).astype(np.int32)
+
+
+def _walk_forwarded(cols, starts, fused):
+    """forwarded_reads by brute force: walk the launches and their steps in
+    the step-major order, keeping the step that last wrote each position,
+    and mark a live read of the reading lane's own position whose last
+    writer lies in the same launch, at most RING_STEPS back, in a launch
+    of at least ON_CHIP_MIN_STEPS steps, of a table of at most
+    ON_CHIP_MAX_K entries a row."""
+    n_steps, r_, k_ = cols.shape
+    s_ = n_steps // 2 if fused else n_steps
+    m = s_ * r_
+    dest = step_dest(n_steps, fused)
+    lane = np.arange(r_)[:, None]
+    writer = np.full(m, -1)
+    out = np.zeros(cols.shape, dtype=bool)
+    bounds = list(starts) + [n_steps]
+    for g0, g1 in zip(bounds[:-1], bounds[1:]):
+        for g in range(g0, g1):
+            c = cols[g].astype(np.int64)
+            c = np.where(c < 0, c + m, c)
+            lim = g * r_ if (not fused or g < s_) else m
+            own = (c >= 0) & (c < lim) & (c % r_ == lane)
+            w = writer[np.where(own, c, 0)]
+            out[g] = (own & (w >= g0) & (g - w <= segments.RING_STEPS)
+                      & (g1 - g0 >= segments.ON_CHIP_MIN_STEPS)
+                      & (k_ <= segments.ON_CHIP_MAX_K))
+            writer[dest[g] * r_ + np.arange(r_)] = g
+    return out
+
+
+def _forward_case(case):
+    """(label, cols, fused, cuts) of one case of the walk test."""
+    kind, arg = case
+    if kind == "paper":
+        return [(lab, cols, fused,
+                 [barrier_segments(cols, fused), np.arange(cols.shape[0])])
+                for lab, cols, _, _, fused in _tables(arg)]
+    if kind == "random":
+        cols = _random_fused(4, 6, 2, arg)[0]
+        return [("random", cols, True,
+                 [barrier_segments(cols, True), np.arange(0, 8, 2)])]
+    s = 40
+    got = []
+    for fused in (True, False):
+        n_steps = 2 * s if fused else s
+        cols = _own_chains(s, 9, arg, fused, seed=arg)
+        cuts = [np.array([0]), np.arange(n_steps), np.arange(0, n_steps, 2),
+                np.arange(0, n_steps, 16), np.arange(0, n_steps, 32),
+                np.array([0, 5, 7, 30])]
+        if fused:      # a launch across the turn
+            cuts.append(np.array([0, s - 9, s + 23]))
+        got.append((f"chains fused={fused}", cols, fused, cuts))
+    return got
+
+
+@pytest.mark.parametrize("case", [("paper", n) for n in PAPER_PROBLEMS]
+                         + [("random", 0), ("random", 1), ("chains", 1),
+                            ("chains", 6), ("chains", 8), ("chains", 11)],
+                         ids=lambda c: f"{c[0]}-{c[1]}")
+def test_forwarded_reads_match_a_step_major_walk(case):
+    """The closed form of the kernels' rule (the latest writer of slice x
+    before step g is x, or the fused table's backward step 2S-1-x if that
+    is before g) against a walk that tracks every position's writer: paper
+    plans with their cut and one launch per step, random tables with many
+    ties, and own-lane chains cut into launches of 1, 2, 16, 32 and all
+    steps, and across the fused table's turn; rows of 11 entries (past
+    ON_CHIP_MAX_K) take the plain path, and none is served."""
+    seen, eligible = 0, False
+    for lab, cols, fused, cuts in _forward_case(case):
+        eligible |= cols.shape[2] <= segments.ON_CHIP_MAX_K
+        for cut in cuts:
+            got = segments.forwarded_reads(cols, cut, fused)
+            np.testing.assert_array_equal(
+                got, _walk_forwarded(cols, cut, fused),
+                err_msg=f"{lab} cut {list(cut)[:8]}")
+            seen += got.sum()
+    if case[0] != "random":
+        assert (seen > 0) == eligible
+
+
+def test_forwarded_reads_chains_past_the_ring_read_y():
+    """A chain back to the first step in one launch: every own-lane read is
+    in the launch, but only those at most RING_STEPS back are served."""
+    s, r = 40, 9
+    cols = _own_chains(s, r, 6, True, seed=3)
+    m = s * r
+    c = np.where(cols < 0, cols + m, cols).astype(np.int64)
+    live = c < m
+    got = segments.forwarded_reads(cols, [0], True)
+    assert got.sum() < live.sum()
+    assert not segments.forwarded_reads(cols, np.arange(2 * s), True).any()
+
+
+def test_forwarded_reads_on_the_thermal2_cell_plan():
+    """The thermal2 cell's plan cut to 300^2 (P1 triangles, block 16, w 8,
+    f64): 9 launches of 8-32 steps an apply, and 31% of the live gathers
+    read what the same launch wrote, 94% of them one step back."""
+    path = (Path(__file__).resolve().parents[1] / "portbench" / "matrices"
+            / "fem2d_p1_lognormal.py")
+    spec = importlib.util.spec_from_file_location("_fem2d_p1", path)
+    fem = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fem)
+    a = fem.make({"nx": 300, "ny": 300, "sigma": 1.0},
+                 np.random.default_rng(0))
+    t = build_plan(a, **KNOBS)._precond.tables
+    cols = t.cols.numpy()
+    assert cols.shape == (128, 1465, 6)
+    seg = barrier_segments(cols, True)
+    assert seg.tolist() == [0, 16, 24, 32, 48, 80, 96, 104, 112]
+    m = 64 * 1465
+    c = np.where(cols < 0, cols + m, cols).astype(np.int64)
+    g = np.arange(128)[:, None, None]
+    live = (c >= 0) & (c < np.where(g < 64, g * 1465, m))
+    served = segments.forwarded_reads(cols, seg, True)
+    assert (int(served.sum()), int(live.sum())) == (164_616, 537_602)
+    assert round(served.sum() / live.sum(), 3) == 0.306
+    x = c // 1465
+    w = np.where((g >= 64) & (127 - x < g), 127 - x, x)
+    assert int((served & (g - w == 1)).sum()) == 155_002
+    assert not (served & ~live).any()
+
+
+def test_on_chip_constants_mirror_the_kernel_source():
+    src = (Path(segments.__file__).resolve().parent / "csrc"
+           / "hbmc_trisolve.cu").read_text()
+    for name, there in (("ON_CHIP_MIN_STEPS", "ON_CHIP_MIN_STEPS"),
+                        ("RING_STEPS", "RING_STEPS"), ("ON_CHIP_MAX_K", "KP")):
+        got = re.search(rf"constexpr int {there} = (\d+);", src)
+        assert got and int(got.group(1)) == getattr(segments, name), name
