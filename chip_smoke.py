@@ -666,28 +666,30 @@ def b1_replay_ms(plan, device, applies: int = 20, replays: int = 10,
             for _ in range(turns)]
 
 
-def thermal2_cell_plan(device, grid: int | None = None):
-    """The benchmark's thermal2 cell plan (P1 triangles, its matrix and
-    knobs, ``portbench/configs/thermal2.json``), on an n x n grid of
-    ``grid`` where given (the CPU rehearsal)."""
+def cell_plan(config: str, device, sizes: dict | None = None):
+    """The plan of the benchmark's configuration ``config`` (its matrix
+    and knobs, ``portbench/configs/<config>.json``), with the matrix
+    parameters ``sizes`` replaced where given."""
     import torch
 
     from portbench.lib import harness, spec
     from repro_torch.core import build_plan
     cfg = spec.load_json_path(ROOT / "portbench" / "configs" /
-                              "thermal2.json")
-    if grid is not None:
-        cfg = {**cfg, "matrix": {**cfg["matrix"], "nx": grid, "ny": grid}}
+                              f"{config}.json")
+    if sizes is not None:
+        cfg = {**cfg, "matrix": {**cfg["matrix"], **sizes}}
     knobs = dict(cfg["plan"], dtype=getattr(torch, cfg["plan"]["dtype"]))
     return build_plan(harness.make_matrix(cfg, 0), device=device, **knobs)
 
 
 def b1_on_chip_phase(plans: dict, device) -> None:
     """Phase 4: B1 on each plan of ``plans`` (label -> plan): its segment
-    lengths, the launches of one apply on each path
-    (``kernels.forwarding_counts()``), the share of live gathers served on
-    chip (``segments.forwarded_reads``), and B1 an apply by CUDA events on
-    replayed graphs beside the time before the on-chip path."""
+    lengths, the table's record in ``segments.analysed()``, the launches
+    of one apply on each path (``kernels.forwarding_counts()``: on chip,
+    plain, and wide for K past ``ON_CHIP_MAX_K``), the share of live
+    gathers served on chip (``segments.forwarded_reads``), and B1 an
+    apply by CUDA events on replayed graphs beside the time before the
+    on-chip path."""
     import numpy as np
     import torch
 
@@ -706,21 +708,30 @@ def b1_on_chip_phase(plans: dict, device) -> None:
         served = int(segments.forwarded_reads(cols, t.segments, True).sum())
         lengths = np.diff(np.append(t.segments, n_steps)).tolist()
         reset_counts()
+        t.__dict__.pop("segments", None)    # analysed again, and recorded
         plan._precond(torch.zeros(plan.slab_m, dtype=plan.dtype,
                                   device=device))
         paths = kernels.forwarding_counts()["hbmc_trisolve_fused"]
-        on_chip = sum(n >= segments.ON_CHIP_MIN_STEPS for n in lengths
-                      if cols.shape[2] <= segments.ON_CHIP_MAX_K)
-        want = ({"on_chip": on_chip, "plain": len(lengths) - on_chip}
-                if device.type == "cuda" else {"on_chip": 0, "plain": 0})
-        if paths != want:
+        analysed = segments.analysed()
+        wide = cols.shape[2] > segments.ON_CHIP_MAX_K
+        on_chip = 0 if wide else sum(n >= segments.ON_CHIP_MIN_STEPS
+                                     for n in lengths)
+        want = {"on_chip": on_chip,
+                "plain": 0 if wide else len(lengths) - on_chip,
+                "wide": len(lengths) if wide else 0}
+        if device.type != "cuda":
+            want = dict.fromkeys(want, 0)
+        if paths != want or analysed != [segments.Analysed(
+                True, n_steps, r_, cols.shape[2], len(lengths))]:
             raise AssertionError(f"{label}: launches by path {paths}, "
-                                 f"segments of {lengths} steps")
+                                 f"segments of {lengths} steps, analysed "
+                                 f"{analysed}")
         ms = b1_replay_ms(plan, device)
         before = B1_APPLY_MS_BEFORE.get(label) if device.type == "cuda" \
             else None
         log(f"  B1 on the {label} plan {tuple(cols.shape)}: segments of "
-            f"{lengths} steps; one apply's launches by path {paths}; "
+            f"{lengths} steps; segments.analysed() {analysed}; one "
+            f"apply's launches by path {paths}; "
             f"{served:,} of {live:,} live gathers served on chip "
             f"({served / max(live, 1):.3f}); ms an apply, replayed graphs "
             f"of 20: {' / '.join(f'{v:.4f}' for v in ms)} (before the "
@@ -3688,8 +3699,11 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     tri_ms = single_rhs_turns(hbmc_trisolve_fused, hbmc_trisolve_fused_batched,
                               t, q, reps, dev, "B1")["B"]
     log("B1's on-chip path:")
-    b1_on_chip_phase({"thermal2 cell": thermal2_cell_plan(
-        dev, None if on_card else grid), "laplace": plan}, dev)
+    bricks = 16 if on_card else 3
+    b1_on_chip_phase({"thermal2 cell": cell_plan(
+        "thermal2", dev, None if on_card else {"nx": grid, "ny": grid}),
+        "laplace": plan, f"audikw_1 ({bricks} bricks a side)": cell_plan(
+            "audikw_1", dev, {"m": bricks})}, dev)
     tri_launches = cuda_launches_per_call(lambda: hbmc_trisolve_fused(
         t.cols, t.vals, t.dinv, q, segments=t.segments))
     tri_plain_ms = time_ms(

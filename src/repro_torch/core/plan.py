@@ -311,6 +311,31 @@ def _shard_rows(vals: np.ndarray, cols: np.ndarray, size: int, rank: int,
     return vals[rows], cols[rows]
 
 
+def _keep_entries(a: sp.csr_matrix, kept: np.ndarray) -> sp.csr_matrix:
+    """A new CSR matrix of the stored entries of ``a`` where ``kept``
+    holds, zeros among them included."""
+    before = np.concatenate([[0], np.cumsum(kept)])   # kept before each
+    indptr = before[a.indptr].astype(a.indptr.dtype)
+    return sp.csr_matrix((a.data[kept], a.indices[kept], indptr),
+                         shape=a.shape)
+
+
+def _drop_stored_zeros(a: sp.csr_matrix
+                       ) -> tuple[sp.csr_matrix, np.ndarray | None]:
+    """``a`` without its stored exact zeros, and which stored entries were
+    kept; ``a`` itself and None where it stores none.
+
+    The ordering's graph sees only nonzeros, the IC(0) structure every
+    stored entry: a stored zero joining two rows that the ordering put in
+    one round would leave the rounds not dependency-ordered (``ic0``
+    raises).  With the zeros dropped once, before the ordering, the
+    ordering, the factor and the SpMV see one pattern."""
+    kept = a.data != 0
+    if kept.all():
+        return a, None
+    return _keep_entries(a, kept), kept
+
+
 def _upload(host: np.ndarray, device: torch.device,
             moved: span | None = None) -> torch.Tensor:
     """``host`` as a tensor on ``device``; the bytes that cross to the
@@ -383,6 +408,7 @@ class SolverPlan:
         # original pattern kept for the refactor structure check
         self._a_indptr = a.indptr.copy()
         self._a_indices = a.indices.copy()
+        a, self._kept = _drop_stored_zeros(a)
 
         with span("build") as build:
             with span("build.ordering") as ordering:
@@ -633,6 +659,12 @@ class SolverPlan:
             raise ValueError("refactor requires a structure-identical "
                              "matrix (same sparsity pattern); build a new "
                              "plan instead")
+        if self._kept is not None:
+            if np.any(a_new.data[~self._kept] != 0):
+                raise ValueError("refactor requires zeros where the plan's "
+                                 "matrix stored zeros (its set-up dropped "
+                                 "them); build a new plan instead")
+            a_new = _keep_entries(a_new, self._kept)
         with span("build") as build:
             with span("build.factor") as factor:
                 a_bar = self._sysd.apply_ordering(a_new)
@@ -950,6 +982,14 @@ def build_plan(a: sp.spmatrix, method: str = "hbmc", block_size: int = 32,
     ``scheduler`` picks how the ordered pattern is cut into parallel rounds:
     ``"coloring"`` uses the method's color rounds, ``"levelset"`` the
     dependency levels of the ordered pattern.
+
+    Stored exact zeros of ``a`` are dropped, on the plan's own copy, before
+    the ordering, so the ordering, the IC(0) factor and the SpMV see one
+    pattern; a matrix that stores none gives the same plan as before.  The
+    product is unchanged for finite vectors, but a stored 0 times a
+    non-finite entry of the vector no longer gives NaN.  ``refactor``
+    takes the matrix with the same stored pattern, and zeros where the
+    dropped entries were.
 
     ``validate`` runs the static schedule race detector
     (``repro_torch.analysis``) at setup, as in the reference: ``"cheap"``

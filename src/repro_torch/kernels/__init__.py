@@ -22,7 +22,8 @@ Each wrapper runs its CUDA kernel for a CUDA tensor and its plain version
 (``cuda_launch_counts``).  The trisolve kernels launch once per
 barrier-free segment of their table (``segments.barrier_segments``);
 ``forwarding_counts`` splits the single-RHS ones (B1, B5) by the path
-each launch took.
+each launch took, and ``segments.analysed()`` lists the tables whose
+segments were computed.
 Every wrapper call, on either device, also adds its operands' bytes
 (``operand_bytes``) and is one opaque node to ``repro_torch.analysis``'s
 dispatch linters (``_trace.kernel_node``).
@@ -30,7 +31,7 @@ dispatch linters (``_trace.kernel_node``).
 ``ops`` (imported on its own, since it reads ``repro_torch.core.sell``)
 carries the index layout's tables and its kernel preconditioner.
 """
-from . import _trace
+from . import _trace, segments
 from . import hbmc_trisolve as _hbmc_trisolve_mod
 from . import sell_spmv as _sell_spmv_mod
 from .config import DEFAULT_DEVICE, resolve_device
@@ -82,10 +83,12 @@ _BYTES_COUNTED = {name: (_trace, f"{name}_bytes") for name in _COUNTED}
 _PATH_COUNTED = {
     "hbmc_trisolve_fused": {"on_chip": (_hbmc_trisolve_mod,
                                         "on_chip_launches"),
-                            "plain": (_hbmc_trisolve_mod, "plain_launches")},
+                            "plain": (_hbmc_trisolve_mod, "plain_launches"),
+                            "wide": (_hbmc_trisolve_mod, "wide_launches")},
     "hbmc_trisolve": {"on_chip": (_hbmc_trisolve_mod,
                                   "sweep_on_chip_launches"),
-                      "plain": (_hbmc_trisolve_mod, "sweep_plain_launches")},
+                      "plain": (_hbmc_trisolve_mod, "sweep_plain_launches"),
+                      "wide": (_hbmc_trisolve_mod, "sweep_wide_launches")},
 }
 
 
@@ -118,8 +121,11 @@ def forwarding_counts() -> dict[str, dict[str, int]]:
     (``hbmc_trisolve``) since the last reset, split by path: ``on_chip``
     (a segment of at least ``segments.ON_CHIP_MIN_STEPS`` steps of a table
     of at most ``segments.ON_CHIP_MAX_K`` entries a row, whose reads of the
-    launch's own writes are served on chip) and ``plain``; the two add up
-    to the wrapper's ``cuda_launch_counts()``."""
+    launch's own writes are served on chip), ``plain`` (the plain path of
+    such a table) and ``wide`` (the plain path of a table of more than
+    ``ON_CHIP_MAX_K`` entries a row, whose entries past it each step loads
+    in the step); the three add up to the wrapper's
+    ``cuda_launch_counts()``."""
     return {name: {path: getattr(mod, attr)
                    for path, (mod, attr) in paths.items()}
             for name, paths in _PATH_COUNTED.items()}
@@ -133,9 +139,10 @@ def _counters() -> tuple:
 
 def reset_launch_counts() -> None:
     """Zero the wrapper-call, CUDA-launch, path and operand-byte
-    counters."""
+    counters, and clear ``segments.analysed()``."""
     for mod, attr in _counters():
         setattr(mod, attr, 0)
+    segments.reset_analysed()
 
 
 def _counter_values() -> dict[tuple, int]:

@@ -30,9 +30,11 @@ the fused single-RHS / batched CUDA kernel, ``sweep_launches`` /
 counters beside them (``cuda_launches``, ``batched_cuda_launches``,
 ``sweep_cuda_launches``, ``sweep_batched_cuda_launches``) count the CUDA
 launches those calls issued, as the C entry points report them: one per
-segment.  ``on_chip_launches`` / ``plain_launches`` split B1's CUDA
-launches by path, ``sweep_on_chip_launches`` / ``sweep_plain_launches``
-B5's.
+segment.  ``on_chip_launches`` / ``plain_launches`` / ``wide_launches``
+split B1's CUDA launches by path, ``sweep_on_chip_launches`` /
+``sweep_plain_launches`` / ``sweep_wide_launches`` B5's: ``wide`` is the
+plain path of a table of more than ``segments.ON_CHIP_MAX_K`` entries a
+row, whose entries past it a step loads in the step.
 
 ``hbmc_trisolve_shard_step`` and ``hbmc_trisolve_shard_step_batched`` run
 one fused step of one rank's lane block of a fused table sharded over a
@@ -55,7 +57,7 @@ from .config import runs_plain
 from .ref import (hbmc_trisolve_batched_ref, hbmc_trisolve_fused_batched_ref,
                   hbmc_trisolve_fused_ref, hbmc_trisolve_ref,
                   hbmc_trisolve_shard_step_ref)
-from .segments import table_segments
+from .segments import ON_CHIP_MAX_K, table_segments
 
 launches = 0
 batched_launches = 0
@@ -71,8 +73,10 @@ shard_cuda_launches = 0
 shard_batched_cuda_launches = 0
 on_chip_launches = 0
 plain_launches = 0
+wide_launches = 0
 sweep_on_chip_launches = 0
 sweep_plain_launches = 0
+sweep_wide_launches = 0
 
 _FLOATS = (torch.float64, torch.float32)
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
@@ -167,6 +171,7 @@ def hbmc_trisolve_fused(cols: torch.Tensor, vals: torch.Tensor,
       z: (S*R,) solution in round-major layout (holes stay 0).
     """
     global launches, cuda_launches, on_chip_launches, plain_launches
+    global wide_launches
     s2, r_, _ = cols.shape
     if q.shape != (s2 // 2, r_):
         raise ValueError(f"q shape {tuple(q.shape)} != rounds shape "
@@ -178,7 +183,10 @@ def hbmc_trisolve_fused(cols: torch.Tensor, vals: torch.Tensor,
     launches += 1
     cuda_launches += n
     on_chip_launches += on_chip
-    plain_launches += n - on_chip
+    if cols.shape[2] > ON_CHIP_MAX_K:
+        wide_launches += n - on_chip
+    else:
+        plain_launches += n - on_chip
     return y
 
 
@@ -227,7 +235,7 @@ def hbmc_trisolve(cols: torch.Tensor, vals: torch.Tensor, dinv: torch.Tensor,
       y: (S*R,) solution in round-major layout.
     """
     global sweep_launches, sweep_cuda_launches, sweep_on_chip_launches
-    global sweep_plain_launches
+    global sweep_plain_launches, sweep_wide_launches
     if q.shape != cols.shape[:2]:
         raise ValueError(f"q shape {tuple(q.shape)} != rounds shape "
                          f"{tuple(cols.shape[:2])}")
@@ -238,7 +246,10 @@ def hbmc_trisolve(cols: torch.Tensor, vals: torch.Tensor, dinv: torch.Tensor,
     sweep_launches += 1
     sweep_cuda_launches += n
     sweep_on_chip_launches += on_chip
-    sweep_plain_launches += n - on_chip
+    if cols.shape[2] > ON_CHIP_MAX_K:
+        sweep_wide_launches += n - on_chip
+    else:
+        sweep_plain_launches += n - on_chip
     return y
 
 

@@ -47,8 +47,15 @@ the thread's own lane, and its latest writer runs earlier in the thread's
 own loop.  ``forwarded_reads`` marks those reads as the kernels decide
 them; it is the host twin of their rule, for the tests and
 ``chip_smoke.py``, never the solve path.
+
+``table_segments`` records the shape and the segment count of each table
+it analyses (``analysed()``; cleared by ``kernels.reset_launch_counts``),
+so that a reader can put a kernel's time over the steps it ran.
 """
 from __future__ import annotations
+
+import collections
+from typing import NamedTuple
 
 import numpy as np
 
@@ -62,6 +69,32 @@ from ..spans import span
 ON_CHIP_MIN_STEPS = 3
 ON_CHIP_MAX_K = 8
 RING_STEPS = 32
+
+
+class Analysed(NamedTuple):
+    """One table ``table_segments`` analysed: fused or a sweep, its steps
+    (G), lanes (R) and entries a row (K), and its barrier-free segments,
+    one launch each."""
+    fused: bool
+    steps: int
+    lanes: int
+    k: int
+    segments: int
+
+
+#: the last 4,096 tables analysed (a plan's tables are analysed once, at
+#: their first apply)
+_ANALYSED: collections.deque = collections.deque(maxlen=4096)
+
+
+def analysed() -> list[Analysed]:
+    """The tables ``table_segments`` analysed since the last
+    ``kernels.reset_launch_counts()``, oldest first."""
+    return list(_ANALYSED)
+
+
+def reset_analysed() -> None:
+    _ANALYSED.clear()
 
 
 def step_dest(n_steps: int, fused: bool) -> np.ndarray:
@@ -162,9 +195,13 @@ def barrier_segments(cols: np.ndarray, fused: bool) -> np.ndarray:
 
 def table_segments(cols, fused: bool) -> np.ndarray:
     """``barrier_segments`` of a device table's ``cols`` (a tensor): the
-    copy to the host and the analysis, timed as the ``segments`` span."""
+    copy to the host and the analysis, timed as the ``segments`` span, and
+    recorded in ``analysed()``."""
     with span("segments"):
-        return barrier_segments(cols.cpu().numpy(), fused)
+        starts = barrier_segments(cols.cpu().numpy(), fused)
+    steps, lanes, k = (int(x) for x in cols.shape)
+    _ANALYSED.append(Analysed(bool(fused), steps, lanes, k, int(starts.size)))
+    return starts
 
 
 def forwarded_reads(cols: np.ndarray, segments, fused: bool) -> np.ndarray:

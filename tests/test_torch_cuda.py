@@ -11,6 +11,7 @@ reduction order.
 """
 import importlib.util
 import math
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -583,11 +584,14 @@ def test_segment_arguments_are_checked(cuda):
 def _paths(starts, n_steps, k):
     """The launches of a cut on each path of B1 / B5: ``on_chip`` for a
     segment of at least ``ON_CHIP_MIN_STEPS`` steps of a table of at most
-    ``ON_CHIP_MAX_K`` entries a row, else ``plain``."""
+    ``ON_CHIP_MAX_K`` entries a row, else ``plain``; every launch of a
+    wider table ``wide``."""
     lengths = np.diff(np.append(starts, n_steps))
-    on_chip = int((lengths >= segments.ON_CHIP_MIN_STEPS).sum()
-                  if k <= segments.ON_CHIP_MAX_K else 0)
-    return {"on_chip": on_chip, "plain": int(lengths.size) - on_chip}
+    if k > segments.ON_CHIP_MAX_K:
+        return {"on_chip": 0, "plain": 0, "wide": int(lengths.size)}
+    on_chip = int((lengths >= segments.ON_CHIP_MIN_STEPS).sum())
+    return {"on_chip": on_chip, "plain": int(lengths.size) - on_chip,
+            "wide": 0}
 
 
 def _fem2d_p1(n):
@@ -599,6 +603,49 @@ def _fem2d_p1(n):
     spec.loader.exec_module(fem)
     return fem.make({"nx": n, "ny": n, "sigma": 1.0},
                     np.random.default_rng(0))
+
+
+def _portbench_module(kind, name):
+    path = (Path(__file__).resolve().parents[1] / "portbench" / kind
+            / f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_portbench_{name}",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module       # its dataclasses look it up
+    spec.loader.exec_module(module)
+    return module
+
+
+def _q1_elasticity(m):
+    """The audikw_1 cell's matrix family (Q1-brick elasticity, 81-entry
+    rows) at m bricks a side."""
+    return _portbench_module("matrices", "fem3d_q1_elasticity").make(
+        {"m": m, "nu": 0.3, "sigma": 1.0}, np.random.default_rng(0))
+
+
+def test_q1_elasticity_plan_matches_the_plain_reference(cuda):
+    """The audikw_1 cell's plan (block 16, w 8, SELL, round-major, f64) at
+    8 bricks a side on the card, B1 and B2 on their wide-row paths,
+    against the plain reference in the plan's ordering
+    (``portbench/reference/iccg_plain.py``, on the CPU): one apply to
+    1e-12, the iteration count and status exactly, the solution to
+    1e-10."""
+    plain = _portbench_module("reference", "iccg_plain")
+    a = _q1_elasticity(8)
+    plan = build_plan(a, block_size=16, w=8, device=cuda)
+    factor = plain.ic0(a, plan._perm)
+    b = np.random.default_rng(8).normal(size=a.shape[0])
+    kernels.reset_launch_counts()
+    z = plan.extract_solution(plan._precond(plan.embed_rhs(b)))
+    assert kernels.forwarding_counts()["hbmc_trisolve_fused"]["wide"] > 0
+    want = plain.apply(factor, torch.from_numpy(b)).numpy()
+    assert np.linalg.norm(z - want) <= 1e-12 * np.linalg.norm(want)
+    rep = plan.solve(b, rtol=1e-7)
+    ref = plain.pcg(a, b, factor, rtol=1e-7)
+    assert (rep.result.iterations, rep.result.status) == (ref.iterations,
+                                                          ref.status)
+    assert ref.status == "CONVERGED"
+    assert np.linalg.norm(rep.x - ref.x) <= 1e-10 * np.linalg.norm(ref.x)
 
 
 def _on_chip_cases(case):
@@ -659,8 +706,8 @@ def test_single_rhs_on_chip_path_bitwise_plain_and_per_step_cut(cuda, case,
         want = ref(cols, vals, dinv, q)
         kernels.reset_launch_counts()
         step = fn(cols, vals, dinv, q, segments=np.arange(n_steps))
-        assert kernels.forwarding_counts()[name] == {"on_chip": 0,
-                                                     "plain": n_steps}
+        assert kernels.forwarding_counts()[name] == _paths(
+            np.arange(n_steps), n_steps, cols.shape[2])
         assert torch.equal(step, want), lab
         served = 0
         for cut in cuts:
@@ -719,6 +766,29 @@ def test_cuda_launch_counts_per_kernel(cuda):
         "hbmc_trisolve": _paths(sw.segments, sw.cols.shape[0],
                                 sw.cols.shape[2])}
     assert kernels.forwarding_counts()["hbmc_trisolve_fused"]["on_chip"] > 0
+    # the third path: the audikw_1 cell's matrix family, K = 80
+    a = _q1_elasticity(4)
+    wide = build_plan(a, **kw)._precond.tables
+    wide_idx = build_plan(a, layout="index", **kw)._precond.kernel.fwd
+    assert wide.cols.shape[2] > segments.ON_CHIP_MAX_K
+    kernels.reset_launch_counts()
+    hbmc_trisolve_fused(wide.cols, wide.vals, wide.dinv,
+                        torch.zeros(wide.n_steps, wide.lanes,
+                                    dtype=torch.float64, device=cuda),
+                        segments=wide.segments)
+    hbmc_trisolve(wide_idx.cols, wide_idx.vals, wide_idx.dinv,
+                  torch.zeros(tuple(wide_idx.dinv.shape), dtype=torch.float64,
+                              device=cuda), segments=wide_idx.segments)
+    assert kernels.forwarding_counts() == {
+        "hbmc_trisolve_fused": {"on_chip": 0, "plain": 0,
+                                "wide": int(wide.segments.size)},
+        "hbmc_trisolve": {"on_chip": 0, "plain": 0,
+                          "wide": int(wide_idx.segments.size)}}
+    assert segments.analysed() == [
+        segments.Analysed(True, 2 * wide.n_steps, wide.lanes,
+                          wide.cols.shape[2], int(wide.segments.size)),
+        segments.Analysed(False, *wide_idx.cols.shape,
+                          int(wide_idx.segments.size))]
 
 
 @pytest.mark.parametrize("fused", [True, False])
