@@ -204,6 +204,7 @@ issued), the card's name and power limit from ``nvidia-smi``, then
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import gc
 import json
@@ -636,10 +637,13 @@ def single_rhs_turns(fn, batched_fn, t, q, reps: int, device,
     return out
 
 
-#: B1 an apply (ms) before the on-chip path, every segment on one path
-#: that read its own lane's writes back through y: CUDA events over
+#: B1 an apply (ms) before the path each plan now takes, every segment on
+#: the plain path (before the on-chip path for thermal2 and laplace, which
+#: read their own lane's writes back through y; before the lane-group path
+#: for audikw_1, a thread a lane walking its 80 entries): CUDA events over
 #: replayed graphs of 20 applies, NVIDIA H100 80GB HBM3 at 700 W
-B1_APPLY_MS_BEFORE = {"thermal2 cell": 0.2649, "laplace": 0.0868}
+B1_APPLY_MS_BEFORE = {"thermal2 cell": 0.2649, "laplace": 0.0868,
+                      "audikw_1 cell": 9.09}
 
 
 def b1_replay_ms(plan, device, applies: int = 20, replays: int = 10,
@@ -684,12 +688,13 @@ def cell_plan(config: str, device, sizes: dict | None = None):
 
 def b1_on_chip_phase(plans: dict, device) -> None:
     """Phase 4: B1 on each plan of ``plans`` (label -> plan): its segment
-    lengths, the table's record in ``segments.analysed()``, the launches
-    of one apply on each path (``kernels.forwarding_counts()``: on chip,
-    plain, and wide for K past ``ON_CHIP_MAX_K``), the share of live
+    lengths, the table's record in ``segments.analysed()``, its lane group
+    G (``segments.lane_group``), the launches of one apply on each path
+    (``kernels.forwarding_counts()``: on chip, plain, wide for K past
+    ``ON_CHIP_MAX_K`` at G = 1, and grouped for G > 1), the share of live
     gathers served on chip (``segments.forwarded_reads``), and B1 an
     apply by CUDA events on replayed graphs beside the time before the
-    on-chip path."""
+    path it takes."""
     import numpy as np
     import torch
 
@@ -698,44 +703,51 @@ def b1_on_chip_phase(plans: dict, device) -> None:
     for label, plan in plans.items():
         t = plan._precond.tables
         cols = t.cols.cpu().numpy()
-        n_steps, r_, _ = cols.shape
+        n_steps, r_, k_ = cols.shape
         m = n_steps // 2 * r_
         c = cols.astype(np.int64)
         c = np.where(c < 0, c + m, c)
         g = np.arange(n_steps)[:, None, None]
         live = int(((c >= 0) & (c < np.where(g < n_steps // 2, g * r_, m)))
                    .sum())
+        del c, g
         served = int(segments.forwarded_reads(cols, t.segments, True).sum())
         lengths = np.diff(np.append(t.segments, n_steps)).tolist()
+        del cols
         reset_counts()
         t.__dict__.pop("segments", None)    # analysed again, and recorded
         plan._precond(torch.zeros(plan.slab_m, dtype=plan.dtype,
                                   device=device))
         paths = kernels.forwarding_counts()["hbmc_trisolve_fused"]
         analysed = segments.analysed()
-        wide = cols.shape[2] > segments.ON_CHIP_MAX_K
+        group = segments.lane_group(k_, r_)
+        wide = k_ > segments.ON_CHIP_MAX_K
         on_chip = 0 if wide else sum(n >= segments.ON_CHIP_MIN_STEPS
                                      for n in lengths)
         want = {"on_chip": on_chip,
                 "plain": 0 if wide else len(lengths) - on_chip,
-                "wide": len(lengths) if wide else 0}
+                "wide": len(lengths) if wide and group == 1 else 0,
+                "grouped": len(lengths) if group > 1 else 0}
         if device.type != "cuda":
             want = dict.fromkeys(want, 0)
         if paths != want or analysed != [segments.Analysed(
-                True, n_steps, r_, cols.shape[2], len(lengths))]:
+                True, n_steps, r_, k_, len(lengths))]:
             raise AssertionError(f"{label}: launches by path {paths}, "
                                  f"segments of {lengths} steps, analysed "
                                  f"{analysed}")
         ms = b1_replay_ms(plan, device)
         before = B1_APPLY_MS_BEFORE.get(label) if device.type == "cuda" \
             else None
-        log(f"  B1 on the {label} plan {tuple(cols.shape)}: segments of "
-            f"{lengths} steps; segments.analysed() {analysed}; one "
-            f"apply's launches by path {paths}; "
+        shown = lengths if len(lengths) <= 40 else \
+            dict(sorted(collections.Counter(lengths).items()))
+        log(f"  B1 on the {label} plan {(n_steps, r_, k_)}: segments of "
+            f"{shown} steps; segments.analysed() {analysed}; lane group "
+            f"G = {group}; one apply's launches by path {paths}; "
             f"{served:,} of {live:,} live gathers served on chip "
             f"({served / max(live, 1):.3f}); ms an apply, replayed graphs "
-            f"of 20: {' / '.join(f'{v:.4f}' for v in ms)} (before the "
-            f"on-chip path: {fmt_ms(before)})")
+            f"of 20: {' / '.join(f'{v:.4f}' for v in ms)} (before its "
+            f"path: {fmt_ms(before)}; "
+            f"{1e3 * min(ms) / n_steps:.3f} us a step)")
 
 
 def embedded(plan, rhs):
@@ -3698,12 +3710,13 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
     log("B1 in turns (ms per apply):")
     tri_ms = single_rhs_turns(hbmc_trisolve_fused, hbmc_trisolve_fused_batched,
                               t, q, reps, dev, "B1")["B"]
-    log("B1's on-chip path:")
-    bricks = 16 if on_card else 3
+    log("B1's on-chip and lane-group paths:")
     b1_on_chip_phase({"thermal2 cell": cell_plan(
         "thermal2", dev, None if on_card else {"nx": grid, "ny": grid}),
-        "laplace": plan, f"audikw_1 ({bricks} bricks a side)": cell_plan(
-            "audikw_1", dev, {"m": bricks})}, dev)
+        "laplace": plan, "audikw_1 cell": cell_plan(
+            "audikw_1", dev, None if on_card else {"m": 3})}, dev)
+    b1_on_chip_phase({"g3_circuit cell": cell_plan(
+        "g3_circuit", dev, None if on_card else {"n": 4 * grid})}, dev)
     tri_launches = cuda_launches_per_call(lambda: hbmc_trisolve_fused(
         t.cols, t.vals, t.dinv, q, segments=t.segments))
     tri_plain_ms = time_ms(

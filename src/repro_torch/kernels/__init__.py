@@ -84,11 +84,15 @@ _PATH_COUNTED = {
     "hbmc_trisolve_fused": {"on_chip": (_hbmc_trisolve_mod,
                                         "on_chip_launches"),
                             "plain": (_hbmc_trisolve_mod, "plain_launches"),
-                            "wide": (_hbmc_trisolve_mod, "wide_launches")},
+                            "wide": (_hbmc_trisolve_mod, "wide_launches"),
+                            "grouped": (_hbmc_trisolve_mod,
+                                        "grouped_launches")},
     "hbmc_trisolve": {"on_chip": (_hbmc_trisolve_mod,
                                   "sweep_on_chip_launches"),
                       "plain": (_hbmc_trisolve_mod, "sweep_plain_launches"),
-                      "wide": (_hbmc_trisolve_mod, "sweep_wide_launches")},
+                      "wide": (_hbmc_trisolve_mod, "sweep_wide_launches"),
+                      "grouped": (_hbmc_trisolve_mod,
+                                  "sweep_grouped_launches")},
 }
 
 
@@ -122,10 +126,11 @@ def forwarding_counts() -> dict[str, dict[str, int]]:
     (a segment of at least ``segments.ON_CHIP_MIN_STEPS`` steps of a table
     of at most ``segments.ON_CHIP_MAX_K`` entries a row, whose reads of the
     launch's own writes are served on chip), ``plain`` (the plain path of
-    such a table) and ``wide`` (the plain path of a table of more than
+    such a table), ``wide`` (the plain path of a table of more than
     ``ON_CHIP_MAX_K`` entries a row, whose entries past it each step loads
-    in the step); the three add up to the wrapper's
-    ``cuda_launch_counts()``."""
+    in the step) and ``grouped`` (the lane-group path of such a table, G =
+    ``segments.lane_group(K, R)`` > 1 threads a lane); the four add up to
+    the wrapper's ``cuda_launch_counts()``."""
     return {name: {path: getattr(mod, attr)
                    for path, (mod, attr) in paths.items()}
             for name, paths in _PATH_COUNTED.items()}

@@ -100,9 +100,40 @@
 //   table of many short segments and many lanes (g3_circuit's 240 rounds)
 //   needs for the occupancy that hides its gathers.
 //
-//   Both paths do the same arithmetic in the same order, so they are
+//   The lane-group path (segment_single_grouped; a table of K > KP entries
+//   a row whose lane group G = lane_group(K, R) is more than 1): where a
+//   step has few lanes and long rows -- the audikw_1 cell's fused table
+//   (480, 1,580, 80) -- one thread a lane leaves ~0.4 warps an SM, each
+//   thread walking 80 entries one dependent load after another: latency,
+//   not bytes (19 us a step).  G threads of one warp take a lane instead
+//   (G <= GROUP_MAX, G <= K, R x G <= GROUP_THREADS, a power of two):
+//   thread t loads entries t, t + G, ... of the row (coalesced across the
+//   group, evict-first, GROUP_AHEAD steps ahead), multiplies them by what
+//   they read, and puts the rounded products in shared memory; the
+//   group's first thread adds them in k order, holes included, and stores
+//   the step's output.  While it adds, the group issues the next step's
+//   gathers: every position but the lane's own entry of the slice the
+//   current step writes is final by then (the segment contract), and that
+//   one comes from the current step's output, handed over by a shuffle.
+//   __syncwarp after the products and after the store orders the group,
+//   so the sum, the masking and every value read are run_step's and the
+//   result stays bitwise.  Bound: bytes, as the plain path; the floor of a
+//   step is the first thread's K dependent adds, and the group's
+//   instruction stream at ~3 warps a scheduler.
+//
+//   Design runs (H100, PERF.md section 6), B1 an apply on the audikw_1
+//   cell's plan on replayed graphs: 9.09 ms plain; 0.931 grouped with the
+//   gathers in the step; 0.826 with them issued during the previous sum;
+//   0.612 with int32 positions and ceil(K / G) entries a thread (1.27 us a
+//   step, 29 launches of ~5.6 us start-up each).  Slower: G = 16 or 8
+//   (fewer threads in flight a lane), the first thread's products read 16
+//   ahead in registers or in pairs, reads through __ldcg; GROUP_AHEAD 2
+//   reads the same as 3.
+//
+//   The paths do the same arithmetic in the same order, so they are
 //   bitwise each other and the plain version; the host picks one per
-//   segment and counts the launches of each (the on_chip out-parameter).
+//   segment and counts the launches of each (the on_chip and grouped
+//   out-parameters).
 
 // B right-hand sides (B3, B6): fused_segment_batched replaces
 //   hbmc_trisolve_fused_batched (body _fused_batched_kernel);
@@ -162,19 +193,35 @@ constexpr int RING_STEPS = 32;
 // READ_AHEAD steps, ahead of its compute.
 constexpr int AHEAD = 4;
 constexpr int READ_AHEAD = 2;
+// Lane-group path: at most GROUP_MAX threads (one warp) a lane, and R x G
+// at most GROUP_THREADS (about half the card's resident threads); each
+// thread of a group loads at most GP entries of a step's row ahead, so a
+// row's first chunk is at most G x GP entries.
+constexpr int GROUP_MAX = 32;
+constexpr int GROUP_THREADS = 132 * 1024;
+constexpr int GP = 4;
+// Lane-group path: a step's row loads GROUP_AHEAD steps ahead of its
+// compute, its reads one step ahead.
+constexpr int GROUP_AHEAD = 3;
 
-// acc + vals_j * y[c_j] for one entry: the gather is masked (c in [-m, 0)
-// wraps; c outside [-m, m), or at or after lim, reads 0) and the product is
-// rounded before it is added.  y holds nb columns, row-major; it is written
-// by earlier steps of the same sweep, so it is read with plain loads, not
-// the read-only path.
+// vals_j * y[c_j] for one entry (term), and acc plus it (add_term): the
+// gather is masked (c in [-m, 0) wraps; c outside [-m, m), or at or after
+// lim, reads 0) and the product is rounded before it is added.  y holds nb
+// columns, row-major; it is written by earlier steps of the same sweep, so
+// it is read with plain loads, not the read-only path.
 template <typename T>
-__device__ __forceinline__ T add_term(T acc, int32_t c, T v, const T* y,
-                                      int64_t m, int64_t lim, int nb, int b) {
+__device__ __forceinline__ T term(int32_t c, T v, const T* y, int64_t m,
+                                  int64_t lim, int nb, int b) {
   int64_t cj = c;
   if (cj < 0) cj += m;
   const T yj = (cj >= 0 && cj < lim) ? y[cj * nb + b] : T(0);
-  return add_rn(acc, mul_rn(v, yj));
+  return mul_rn(v, yj);
+}
+
+template <typename T>
+__device__ __forceinline__ T add_term(T acc, int32_t c, T v, const T* y,
+                                      int64_t m, int64_t lim, int nb, int b) {
+  return add_rn(acc, term(c, v, y, m, lim, nb, b));
 }
 
 // acc plus the entries j = j0..k-1 of a row, in order, for one (lane,
@@ -521,6 +568,202 @@ __global__ void __launch_bounds__(SINGLE_THREADS)
     run_segment_single<T, FUSED>(cols, vals, dinv, q, y, g0, g1, s, r, k);
 }
 
+// Thread t's part of a step's row (lane-group path, NP entries a thread):
+// entries t, t + G, ..., t + (NP-1) G, neighbouring threads on
+// neighbouring entries, and for the group's first thread dinv and q (a
+// forward step), all evict-first.  Entries past K stay 0, never loaded.
+template <typename T, int NP>
+struct GroupRow {
+  int32_t c[NP];
+  T v[NP];
+  T d, q;
+};
+
+// What thread t's entries of a step read (lane-group path): each gather
+// (0 where masked) and, for the first thread, a backward step's own
+// right-hand side; bit i of `last` (bit NP: the right-hand side) marks a
+// read of what the previous step of the launch wrote.
+template <typename T, int NP>
+struct GroupReads {
+  T y[NP];
+  T rhs;
+  unsigned last;
+};
+
+template <typename T, bool FUSED, int G, int NP>
+__device__ __forceinline__ void load_group_row(
+    GroupRow<T, NP>& w, const int32_t* __restrict__ cols,
+    const T* __restrict__ vals, const T* __restrict__ dinv,
+    const T* __restrict__ q, int g, int s, int r, int k, int lane, int t) {
+  const int64_t row = (int64_t)g * r + lane;
+  const int32_t* __restrict__ cr = cols + row * k;
+  const T* __restrict__ vr = vals + row * k;
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const int j = i * G + t;
+    if (j < k) {
+      w.c[i] = __ldcs(cr + j);
+      w.v[i] = __ldcs(vr + j);
+    }
+  }
+  if (t == 0) {
+    w.d = __ldcs(dinv + row);
+    if (!FUSED || g < s) w.q = __ldcs(q + row);
+  }
+}
+
+// The reads of step g of lane `lane` (thread t of its group) from its row
+// w, issued while step g - 1 is still summing.  A live read (masked as
+// term's) of position `prev` -- the lane's own entry of the slice step
+// g - 1 of the launch writes, -1 at the launch's first step -- is marked
+// to take that step's output, whose store may not have landed; by the
+// segment contract every other position is one that no step of the launch
+// from g - 1 on writes before g reads it, so it is loaded now.  Positions
+// are int32 (S*R fits: the host takes this path only then).
+template <typename T, bool FUSED, int G, int NP>
+__device__ __forceinline__ void read_group_step(GroupReads<T, NP>& rd,
+                                                const GroupRow<T, NP>& w,
+                                                const T* y, int g, int s,
+                                                int r, int k, int lane, int t,
+                                                int prev) {
+  const int m = s * r;
+  const bool fwd = !FUSED || g < s;
+  const unsigned lim = fwd ? g * r : m;
+  unsigned last = 0;
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const int p = w.c[i] < 0 ? w.c[i] + m : w.c[i];
+    const bool live = i * G + t < k && (unsigned)p < lim;
+    const bool own = live && p == prev;
+    last |= (unsigned)own << i;
+    T yj = T(0);
+    if (live && !own) yj = y[p];
+    rd.y[i] = yj;
+  }
+  if (t == 0 && !fwd) {   // y[dest], written by forward step 2S-1-g
+    const int dest = (2 * s - 1 - g) * r + lane;
+    const bool own = dest == prev;
+    last |= (unsigned)own << NP;
+    T rhs = T(0);
+    if (!own) rhs = y[dest];
+    rd.rhs = rhs;
+  }
+  rd.last = last;
+}
+
+// B1 / B5 on the lane-group path: steps [g0, g1) of a fused (FUSED) or
+// single-sweep table for one RHS, G threads of one warp a lane (G a power
+// of two, 2..GROUP_MAX), SINGLE_THREADS / G lanes a block, NP entries of a
+// row's first chunk a thread.  A row goes in chunks of G x NP entries.
+// Each thread multiplies its entries of the first chunk by what they read
+// into the group's slots in shared memory; after a __syncwarp it issues
+// its reads of the next step (read_group_step) and its loads of the row
+// GROUP_AHEAD steps on, while the group's first thread adds the products
+// in k order.  Further chunks (K > G x NP) load, gather and add in the
+// step, a __syncwarp before and after each.  The first thread then stores
+// the step's output; a __syncwarp, and a shuffle hands the output to the
+// group for the next step's reads of it.  Every thread of the block runs
+// every step, __syncwarp and shuffle, those past R computing nothing.  The
+// rows and reads in flight sit in rings indexed by (g - g0) % GROUP_AHEAD,
+// in a loop unrolled by GROUP_AHEAD, so no register is copied while its
+// load is in flight.  The arithmetic, and the value each read sees, are
+// run_step's.
+template <typename T, bool FUSED, int G, int NP>
+__global__ void __launch_bounds__(SINGLE_THREADS)
+    segment_single_grouped(const int32_t* __restrict__ cols,
+                           const T* __restrict__ vals,
+                           const T* __restrict__ dinv,
+                           const T* __restrict__ q, T* y, int g0, int g1,
+                           int s, int r, int k) {
+  static_assert(G >= 2 && G <= GROUP_MAX && (G & (G - 1)) == 0,
+                "a group is a power of two within a warp");
+  static_assert(NP >= 1 && NP <= GP, "at most GP entries a thread");
+  constexpr int CHUNK = G * NP;
+  __shared__ T prod[SINGLE_THREADS * NP];
+  const int t = threadIdx.x % G;
+  const int lane = blockIdx.x * (SINGLE_THREADS / G) + threadIdx.x / G;
+  const bool active = lane < r;
+  const bool lead = active && t == 0;
+  T* const slots = prod + (threadIdx.x / G) * CHUNK;
+  const int n0 = k < CHUNK ? k : CHUNK;
+  GroupRow<T, NP> rows[GROUP_AHEAD] = {};
+  GroupReads<T, NP> rd[GROUP_AHEAD] = {};
+  if (active) {
+#pragma unroll
+    for (int i = 0; i < GROUP_AHEAD; ++i)
+      if (g0 + i < g1)
+        load_group_row<T, FUSED, G, NP>(rows[i], cols, vals, dinv, q, g0 + i,
+                                        s, r, k, lane, t);
+    read_group_step<T, FUSED, G, NP>(rd[0], rows[0], y, g0, s, r, k, lane, t,
+                                     -1);
+  }
+  T last = T(0);
+  for (int base = g0; base < g1; base += GROUP_AHEAD) {
+#pragma unroll
+    for (int i = 0; i < GROUP_AHEAD; ++i) {
+      const int g = base + i;
+      if (g < g1) {
+        const bool fwd = !FUSED || g < s;
+        const int dest = (fwd ? g : 2 * s - 1 - g) * r + lane;
+        const GroupReads<T, NP>& cur = rd[i];
+        // entries past K multiply 0 by 0 into slots the sum never reads
+        if (active) {
+#pragma unroll
+          for (int ii = 0; ii < NP; ++ii)
+            slots[ii * G + t] = mul_rn(
+                rows[i].v[ii], (cur.last >> ii) & 1 ? last : cur.y[ii]);
+        }
+        const T d = rows[i].d, qf = rows[i].q;
+        __syncwarp();
+        if (active && g + 1 < g1)
+          read_group_step<T, FUSED, G, NP>(rd[(i + 1) % GROUP_AHEAD],
+                                           rows[(i + 1) % GROUP_AHEAD], y,
+                                           g + 1, s, r, k, lane, t, dest);
+        if (active && g + GROUP_AHEAD < g1)
+          load_group_row<T, FUSED, G, NP>(rows[i], cols, vals, dinv, q,
+                                          g + GROUP_AHEAD, s, r, k, lane, t);
+        T acc = T(0);
+        if (lead) {
+#pragma unroll 8
+          for (int j = 0; j < n0; ++j) acc = add_rn(acc, slots[j]);
+        }
+        if (k > CHUNK) {
+          const int64_t m = (int64_t)s * r;
+          const int64_t lim = fwd ? (int64_t)g * r : m;
+          const int64_t row = (int64_t)g * r + lane;
+          for (int cb = CHUNK; cb < k; cb += CHUNK) {
+            __syncwarp();   // the first thread has read the last chunk
+            if (active) {
+#pragma unroll
+              for (int ii = 0; ii < NP; ++ii) {
+                const int j = cb + ii * G + t;
+                if (j < k)
+                  slots[ii * G + t] = term(__ldcs(cols + row * k + j),
+                                           __ldcs(vals + row * k + j), y, m,
+                                           lim, 1, 0);
+              }
+            }
+            __syncwarp();
+            if (lead) {
+              const int n = k - cb < CHUNK ? k - cb : CHUNK;
+#pragma unroll 8
+              for (int j = 0; j < n; ++j) acc = add_rn(acc, slots[j]);
+            }
+          }
+        }
+        T out = T(0);
+        if (lead) {
+          const T rhs = fwd ? qf : (cur.last >> NP) & 1 ? last : cur.rhs;
+          out = (rhs - acc) * d;
+          y[dest] = out;
+        }
+        __syncwarp();
+        last = __shfl_sync(0xffffffffu, out, 0, G);
+      }
+    }
+  }
+}
+
 // B3: a segment of the fused table (2S steps, backward steps g >= S).
 template <typename T>
 __global__ void fused_segment_batched(const int32_t* __restrict__ cols,
@@ -633,21 +876,79 @@ void launch_on_chip(const int32_t* cols, const T* vals, const T* dinv,
       cols, vals, dinv, q, y, g0, g1, s, r, KN);
 }
 
+// The lane group of a table of K entries a row and R lanes (the host twin:
+// segments.lane_group): 1 (a thread a lane) where K <= KP, else the
+// largest power of two G <= GROUP_MAX with G <= K and R x G <=
+// GROUP_THREADS, or 1 where there is none.
+int lane_group(int k, int r) {
+  if (k <= KP) return 1;
+  int g = GROUP_MAX;
+  while (g > 1 && (g > k || (int64_t)r * g > GROUP_THREADS)) g /= 2;
+  return g;
+}
+
+// B1 / B5 on the lane-group path, G threads a lane and NP entries of a
+// row's first chunk a thread: one launch.
+template <typename T, bool FUSED, int G, int NP>
+void launch_grouped(const int32_t* cols, const T* vals, const T* dinv,
+                    const T* q, T* y, int g0, int g1, int s, int r, int k,
+                    cudaStream_t st) {
+  const unsigned blocks =
+      (unsigned)(((int64_t)r * G + SINGLE_THREADS - 1) / SINGLE_THREADS);
+  segment_single_grouped<T, FUSED, G, NP>
+      <<<blocks, SINGLE_THREADS, 0, st>>>(cols, vals, dinv, q, y, g0, g1, s,
+                                          r, k);
+}
+
+// The same with NP = ceil(K / G) entries a thread, taken from 2..GP (3
+// only at G = GROUP_MAX: below it G is K's largest power of two, so a
+// thread has at most two entries, unless R cuts G down).
+template <typename T, bool FUSED, int G>
+void launch_group(const int32_t* cols, const T* vals, const T* dinv,
+                  const T* q, T* y, int g0, int g1, int s, int r, int k,
+                  cudaStream_t st) {
+  const int per = (k + G - 1) / G;
+  if (per <= 2)
+    return launch_grouped<T, FUSED, G, 2>(cols, vals, dinv, q, y, g0, g1, s,
+                                          r, k, st);
+  if constexpr (G == GROUP_MAX)
+    if (per == 3)
+      return launch_grouped<T, FUSED, G, 3>(cols, vals, dinv, q, y, g0, g1,
+                                            s, r, k, st);
+  launch_grouped<T, FUSED, G, GP>(cols, vals, dinv, q, y, g0, g1, s, r, k,
+                                  st);
+}
+
 // B1 / B5: SINGLE_THREADS a block, one per lane, so the 1M plan's 32,768
-// lanes make 256 blocks over the 132 SMs.  A segment of at least
-// ON_CHIP_MIN_STEPS steps of a table of K <= KP entries a row, whose
-// entries count below 2^31, takes the on-chip path; the rest the plain
-// one.  *on_chip counts the on-chip launches.
+// lanes make 256 blocks over the 132 SMs.  A table of K > KP entries a row
+// whose lane group (lane_group) is G > 1 takes the lane-group path, G
+// threads a lane; else a segment of at least ON_CHIP_MIN_STEPS steps of a
+// table of K <= KP entries a row, whose entries count below 2^31, takes
+// the on-chip path; the rest the plain one.  *on_chip counts the on-chip
+// launches, *grouped the lane-group ones.
 template <typename T, bool FUSED>
 int launch_single(const int32_t* cols, const T* vals, const T* dinv,
                   const T* q, T* y, int s, int r, int k, const int32_t* segs,
-                  int nseg, cudaStream_t st, int* on_chip, int* launched) {
+                  int nseg, cudaStream_t st, int* on_chip, int* grouped,
+                  int* launched) {
   const unsigned blocks =
       (unsigned)((r + SINGLE_THREADS - 1) / SINGLE_THREADS);
   const bool fits =
       k >= 1 && k <= KP && (int64_t)(FUSED ? 2 * s : s) * r * k < (1ll << 31);
+  // (every packed table's positions fit int32: its hole is S*R itself)
+  const int group = (int64_t)s * r < (1ll << 31) ? lane_group(k, r) : 1;
   return for_each_segment(
       segs, nseg, FUSED ? 2 * s : s, launched, [&](int g0, int g1) {
+        if (group > 1) {
+          ++*grouped;
+          switch (group) {
+            case 2: return launch_group<T, FUSED, 2>(cols, vals, dinv, q, y, g0, g1, s, r, k, st);
+            case 4: return launch_group<T, FUSED, 4>(cols, vals, dinv, q, y, g0, g1, s, r, k, st);
+            case 8: return launch_group<T, FUSED, 8>(cols, vals, dinv, q, y, g0, g1, s, r, k, st);
+            case 16: return launch_group<T, FUSED, 16>(cols, vals, dinv, q, y, g0, g1, s, r, k, st);
+            default: return launch_group<T, FUSED, GROUP_MAX>(cols, vals, dinv, q, y, g0, g1, s, r, k, st);
+          }
+        }
         if (!fits || g1 - g0 < ON_CHIP_MIN_STEPS) {
           segment_single<T, FUSED, 0><<<blocks, SINGLE_THREADS, 0, st>>>(
               cols, vals, dinv, q, y, g0, g1, s, r, k);
@@ -673,19 +974,20 @@ int launch_single(const int32_t* cols, const T* vals, const T* dinv,
 // the result on return (stream-ordered); segs is a host array of the nseg
 // ascending segment starts (segs[0] == 0), one launch per segment;
 // *launched is incremented once per kernel launch issued, and for B1 / B5
-// *on_chip once per launch on the on-chip path; the return value is the
-// first CUDA error.
+// *on_chip once per launch on the on-chip path and *grouped once per
+// launch on the lane-group path; the return value is the first CUDA
+// error.
 
 extern "C" int hbmc_trisolve_fused_f64(const void* cols, const void* vals,
                                        const void* dinv, const void* q,
                                        void* y, int s, int r, int k,
                                        const void* segs, int nseg,
                                        void* stream, int* on_chip,
-                                       int* launched) {
+                                       int* grouped, int* launched) {
   return launch_single<double, true>(
       (const int32_t*)cols, (const double*)vals, (const double*)dinv,
       (const double*)q, (double*)y, s, r, k, (const int32_t*)segs, nseg,
-      (cudaStream_t)stream, on_chip, launched);
+      (cudaStream_t)stream, on_chip, grouped, launched);
 }
 
 extern "C" int hbmc_trisolve_fused_f32(const void* cols, const void* vals,
@@ -693,11 +995,11 @@ extern "C" int hbmc_trisolve_fused_f32(const void* cols, const void* vals,
                                        void* y, int s, int r, int k,
                                        const void* segs, int nseg,
                                        void* stream, int* on_chip,
-                                       int* launched) {
+                                       int* grouped, int* launched) {
   return launch_single<float, true>(
       (const int32_t*)cols, (const float*)vals, (const float*)dinv,
       (const float*)q, (float*)y, s, r, k, (const int32_t*)segs, nseg,
-      (cudaStream_t)stream, on_chip, launched);
+      (cudaStream_t)stream, on_chip, grouped, launched);
 }
 
 extern "C" int hbmc_trisolve_fused_batched_f64(
@@ -724,22 +1026,22 @@ extern "C" int hbmc_trisolve_f64(const void* cols, const void* vals,
                                  const void* dinv, const void* q, void* y,
                                  int s, int r, int k, const void* segs,
                                  int nseg, void* stream, int* on_chip,
-                                 int* launched) {
+                                 int* grouped, int* launched) {
   return launch_single<double, false>(
       (const int32_t*)cols, (const double*)vals, (const double*)dinv,
       (const double*)q, (double*)y, s, r, k, (const int32_t*)segs, nseg,
-      (cudaStream_t)stream, on_chip, launched);
+      (cudaStream_t)stream, on_chip, grouped, launched);
 }
 
 extern "C" int hbmc_trisolve_f32(const void* cols, const void* vals,
                                  const void* dinv, const void* q, void* y,
                                  int s, int r, int k, const void* segs,
                                  int nseg, void* stream, int* on_chip,
-                                 int* launched) {
+                                 int* grouped, int* launched) {
   return launch_single<float, false>(
       (const int32_t*)cols, (const float*)vals, (const float*)dinv,
       (const float*)q, (float*)y, s, r, k, (const int32_t*)segs, nseg,
-      (cudaStream_t)stream, on_chip, launched);
+      (cudaStream_t)stream, on_chip, grouped, launched);
 }
 
 extern "C" int hbmc_trisolve_batched_f64(const void* cols, const void* vals,

@@ -18,11 +18,15 @@ take, for a segment of at least ``segments.ON_CHIP_MIN_STEPS`` steps of a
 table of at most ``segments.ON_CHIP_MAX_K`` entries a row, the on-chip
 path: a thread serves the reads of what it wrote in the same launch from
 registers and shared memory and loads everything else ahead
-(``segments.forwarded_reads`` marks the reads it serves); other segments
-take the plain path, which loads the next step's table entries ahead of
-the current step's gathers.  The batched ones run the plain per-step
-loop.  For a CPU tensor each wrapper runs the plain PyTorch version in
-``ref``, whose result is the step-major one, and ignores ``segments``.
+(``segments.forwarded_reads`` marks the reads it serves).  A table of
+more entries a row whose lane group (``segments.lane_group``) is G > 1
+takes the lane-group path: G threads of a warp a lane, the row's entries
+gathered and multiplied side by side, summed in k order by the group's
+first thread.  Other segments take the plain path, which loads the next
+step's table entries ahead of the current step's gathers.  The batched
+ones run the plain per-step loop.  For a CPU tensor each wrapper runs the
+plain PyTorch version in ``ref``, whose result is the step-major one, and
+ignores ``segments``.
 
 ``launches`` / ``batched_launches`` count the wrapper calls that launched
 the fused single-RHS / batched CUDA kernel, ``sweep_launches`` /
@@ -30,11 +34,13 @@ the fused single-RHS / batched CUDA kernel, ``sweep_launches`` /
 counters beside them (``cuda_launches``, ``batched_cuda_launches``,
 ``sweep_cuda_launches``, ``sweep_batched_cuda_launches``) count the CUDA
 launches those calls issued, as the C entry points report them: one per
-segment.  ``on_chip_launches`` / ``plain_launches`` / ``wide_launches``
-split B1's CUDA launches by path, ``sweep_on_chip_launches`` /
-``sweep_plain_launches`` / ``sweep_wide_launches`` B5's: ``wide`` is the
+segment.  ``on_chip_launches`` / ``plain_launches`` / ``wide_launches`` /
+``grouped_launches`` split B1's CUDA launches by path,
+``sweep_on_chip_launches`` / ``sweep_plain_launches`` /
+``sweep_wide_launches`` / ``sweep_grouped_launches`` B5's: ``wide`` is the
 plain path of a table of more than ``segments.ON_CHIP_MAX_K`` entries a
-row, whose entries past it a step loads in the step.
+row, whose entries past it a step loads in the step, and ``grouped`` the
+lane-group path.
 
 ``hbmc_trisolve_shard_step`` and ``hbmc_trisolve_shard_step_batched`` run
 one fused step of one rank's lane block of a fused table sharded over a
@@ -74,9 +80,11 @@ shard_batched_cuda_launches = 0
 on_chip_launches = 0
 plain_launches = 0
 wide_launches = 0
+grouped_launches = 0
 sweep_on_chip_launches = 0
 sweep_plain_launches = 0
 sweep_wide_launches = 0
+sweep_grouped_launches = 0
 
 _FLOATS = (torch.float64, torch.float32)
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
@@ -104,27 +112,29 @@ def _check(cols, vals, dinv, q) -> None:
 
 
 def _run(entry: str, cols, vals, dinv, q, segments,
-         fused: bool) -> tuple[torch.Tensor, int, int]:
+         fused: bool) -> tuple[torch.Tensor, int, int, int]:
     """Check the operands and ``segments`` (``_segments``) and launch
     ``entry`` once per segment into a new (S*R[, B]) buffer, which the
     kernels need no zeros in; returns it, the number of CUDA launches and,
     for the single-RHS kernels (q of two dims), how many of those took the
-    on-chip path (0 for the batched ones)."""
+    on-chip path and how many the lane-group path (0 and 0 for the batched
+    ones)."""
     _check(cols, vals, dinv, q)
     seg = _segments(segments, cols, fused)
     s_, r_, k_ = q.shape[0], q.shape[1], cols.shape[2]
     shape = (s_ * r_,) + tuple(q.shape[2:])
     y = torch.empty(shape, dtype=vals.dtype, device=q.device)
     if not y.numel():
-        return y, 0, 0
+        return y, 0, 0, 0
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    on_chip = ctypes.c_int(0)
-    single = () if q.dim() == 3 else (ctypes.byref(on_chip),)
+    on_chip, grouped = ctypes.c_int(0), ctypes.c_int(0)
+    single = () if q.dim() == 3 else (ctypes.byref(on_chip),
+                                      ctypes.byref(grouped))
     n = _build.call(f"{entry}_{_SUFFIX[vals.dtype]}", cols.data_ptr(),
                     vals.data_ptr(), dinv.data_ptr(), q.data_ptr(),
                     y.data_ptr(), s_, r_, k_, *q.shape[2:], seg.ctypes.data,
                     int(seg.size), stream, *single)
-    return y, n, on_chip.value
+    return y, n, on_chip.value, grouped.value
 
 
 def _segments(segments, cols: torch.Tensor, fused: bool) -> np.ndarray:
@@ -171,22 +181,24 @@ def hbmc_trisolve_fused(cols: torch.Tensor, vals: torch.Tensor,
       z: (S*R,) solution in round-major layout (holes stay 0).
     """
     global launches, cuda_launches, on_chip_launches, plain_launches
-    global wide_launches
+    global wide_launches, grouped_launches
     s2, r_, _ = cols.shape
     if q.shape != (s2 // 2, r_):
         raise ValueError(f"q shape {tuple(q.shape)} != rounds shape "
                          f"{(s2 // 2, r_)}")
     if runs_plain(q):
         return hbmc_trisolve_fused_ref(cols, vals, dinv, q)
-    y, n, on_chip = _run("hbmc_trisolve_fused", cols, vals, dinv, q,
-                         segments, True)
+    y, n, on_chip, grouped = _run("hbmc_trisolve_fused", cols, vals, dinv,
+                                  q, segments, True)
     launches += 1
     cuda_launches += n
     on_chip_launches += on_chip
+    grouped_launches += grouped
+    rest = n - on_chip - grouped
     if cols.shape[2] > ON_CHIP_MAX_K:
-        wide_launches += n - on_chip
+        wide_launches += rest
     else:
-        plain_launches += n - on_chip
+        plain_launches += rest
     return y
 
 
@@ -208,8 +220,8 @@ def hbmc_trisolve_fused_batched(cols: torch.Tensor, vals: torch.Tensor,
                          "(B,)")
     if runs_plain(q):
         return hbmc_trisolve_fused_batched_ref(cols, vals, dinv, q)
-    y, n, _ = _run("hbmc_trisolve_fused_batched", cols, vals, dinv, q,
-                   segments, True)
+    y, n, _, _ = _run("hbmc_trisolve_fused_batched", cols, vals, dinv, q,
+                      segments, True)
     batched_launches += 1
     batched_cuda_launches += n
     return y
@@ -235,21 +247,23 @@ def hbmc_trisolve(cols: torch.Tensor, vals: torch.Tensor, dinv: torch.Tensor,
       y: (S*R,) solution in round-major layout.
     """
     global sweep_launches, sweep_cuda_launches, sweep_on_chip_launches
-    global sweep_plain_launches, sweep_wide_launches
+    global sweep_plain_launches, sweep_wide_launches, sweep_grouped_launches
     if q.shape != cols.shape[:2]:
         raise ValueError(f"q shape {tuple(q.shape)} != rounds shape "
                          f"{tuple(cols.shape[:2])}")
     if runs_plain(q):
         return hbmc_trisolve_ref(cols, vals, dinv, q)
-    y, n, on_chip = _run("hbmc_trisolve", cols, vals, dinv, q, segments,
-                         False)
+    y, n, on_chip, grouped = _run("hbmc_trisolve", cols, vals, dinv, q,
+                                  segments, False)
     sweep_launches += 1
     sweep_cuda_launches += n
     sweep_on_chip_launches += on_chip
+    sweep_grouped_launches += grouped
+    rest = n - on_chip - grouped
     if cols.shape[2] > ON_CHIP_MAX_K:
-        sweep_wide_launches += n - on_chip
+        sweep_wide_launches += rest
     else:
-        sweep_plain_launches += n - on_chip
+        sweep_plain_launches += rest
     return y
 
 
@@ -270,8 +284,8 @@ def hbmc_trisolve_batched(cols: torch.Tensor, vals: torch.Tensor,
                          f"{tuple(cols.shape[:2])} + (B,)")
     if runs_plain(q):
         return hbmc_trisolve_batched_ref(cols, vals, dinv, q)
-    y, n, _ = _run("hbmc_trisolve_batched", cols, vals, dinv, q, segments,
-                   False)
+    y, n, _, _ = _run("hbmc_trisolve_batched", cols, vals, dinv, q,
+                      segments, False)
     sweep_batched_launches += 1
     sweep_batched_cuda_launches += n
     return y

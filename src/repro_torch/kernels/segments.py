@@ -46,7 +46,8 @@ read of a value the same launch wrote: by the tie rule such a read is of
 the thread's own lane, and its latest writer runs earlier in the thread's
 own loop.  ``forwarded_reads`` marks those reads as the kernels decide
 them; it is the host twin of their rule, for the tests and
-``chip_smoke.py``, never the solve path.
+``chip_smoke.py``, never the solve path.  ``lane_group`` likewise twins
+how many threads of a warp they give a lane of a wide-row table.
 
 ``table_segments`` records the shape and the segment count of each table
 it analyses (``analysed()``; cleared by ``kernels.reset_launch_counts``),
@@ -69,6 +70,11 @@ from ..spans import span
 ON_CHIP_MIN_STEPS = 3
 ON_CHIP_MAX_K = 8
 RING_STEPS = 32
+#: Their lane-group path: a table of more than ON_CHIP_MAX_K entries a row
+#: runs G threads of one warp a lane, G at most GROUP_MAX, with R x G at
+#: most GROUP_THREADS (about half the H100's resident threads).
+GROUP_MAX = 32
+GROUP_THREADS = 132 * 1024
 
 
 class Analysed(NamedTuple):
@@ -202,6 +208,22 @@ def table_segments(cols, fused: bool) -> np.ndarray:
     steps, lanes, k = (int(x) for x in cols.shape)
     _ANALYSED.append(Analysed(bool(fused), steps, lanes, k, int(starts.size)))
     return starts
+
+
+def lane_group(k: int, r: int) -> int:
+    """Threads a lane that the single-RHS kernels give a table of ``k``
+    entries a row and ``r`` lanes: 1 where ``k <= ON_CHIP_MAX_K``, else the
+    largest power of two G <= ``GROUP_MAX`` with G <= k and r x G <=
+    ``GROUP_THREADS``, or 1 where there is none.  G > 1 is the lane-group
+    path (``kernels.forwarding_counts()``'s ``grouped``).  The host twin of
+    the kernels' ``lane_group``, for the tests and ``chip_smoke.py``, never
+    the solve path."""
+    if k <= ON_CHIP_MAX_K:
+        return 1
+    g = GROUP_MAX
+    while g > 1 and (g > k or r * g > GROUP_THREADS):
+        g //= 2
+    return g
 
 
 def forwarded_reads(cols: np.ndarray, segments, fused: bool) -> np.ndarray:

@@ -10,6 +10,7 @@ over K in order with each product rounded, the plain versions use PyTorch's
 reduction order.
 """
 import importlib.util
+import itertools
 import math
 import sys
 from pathlib import Path
@@ -460,35 +461,93 @@ def test_single_rhs_kernels_bitwise_on_paper_plans(cuda, name, scheduler,
         assert torch.equal(z, step)
 
 
-@pytest.mark.parametrize("k", [1, 8, 11])
+def _random_table(s, r, k, fused, rng, device, dtype=torch.float64):
+    """A random single-RHS table on the card with many cross-lane reads,
+    wrapped and out-of-range positions and holes, none of another lane's
+    entry of a step's own slice (and, for a sweep, none of a later slice):
+    (cols as numpy, [cols, vals, dinv] on the card)."""
+    m = s * r
+    n_steps = 2 * s if fused else s
+    dest = step_dest(n_steps, fused)
+    cols = rng.integers(-m, m + 3, size=(n_steps, r, k))
+    c = np.where(cols < 0, cols + m, cols)
+    bad = (c // r == dest[:, None, None]) if fused else \
+        (c // r >= dest[:, None, None])
+    cols = np.where(bad, m, cols).astype(np.int32)
+    t = [torch.tensor(x, device=device, dtype=dt) for x, dt in (
+        (cols, torch.int32), (0.3 * rng.normal(size=(n_steps, r, k)), dtype),
+        (rng.uniform(0.5, 1.5, size=(n_steps, r)), dtype))]
+    return cols, t
+
+
+@pytest.mark.parametrize("k", [1, 8, 11, 33, 80, 129])
 def test_single_rhs_kernels_on_random_tables(cuda, k):
     """Random tables with many cross-lane reads, several blocks of lanes,
-    and K below, at and past the entries the kernel prefetches (8): B1 and
-    B5 bitwise their plain versions with the computed segments, one per
-    step, and None."""
-    s, r = 5, 300
-    m = s * r
+    and K below, at and past the entries the kernel prefetches (8), in f64
+    and f32: B1 and B5 bitwise their plain versions with the computed
+    segments, one per step, and None, with the launches of each path as
+    the rule predicts.  Past 8 entries R = 300 takes the lane-group path
+    (``segments.lane_group``: 8 threads a lane at K = 11, 32 above; K =
+    129 runs two chunks of a row) and R = 67,585, on two rounds, the plain
+    one (``wide``)."""
     rng = np.random.default_rng(k)
-    for fused in (True, False):
+    shapes = [(5, 300)]
+    if k > segments.ON_CHIP_MAX_K:
+        shapes.append((2, segments.GROUP_THREADS // 2 + 1))
+    for (s, r), dtype, fused in itertools.product(
+            shapes, (torch.float64, torch.float32), (True, False)):
         n_steps = 2 * s if fused else s
-        dest = step_dest(n_steps, fused)
-        cols = rng.integers(-m, m + 3, size=(n_steps, r, k))
-        c = np.where(cols < 0, cols + m, cols)
-        bad = (c // r == dest[:, None, None]) if fused else \
-            (c // r >= dest[:, None, None])
-        cols = np.where(bad, m, cols).astype(np.int32)
-        t = [torch.tensor(x, device=cuda) for x in (
-            cols, 0.3 * rng.normal(size=(n_steps, r, k)),
-            rng.uniform(0.5, 1.5, size=(n_steps, r)))]
-        q = torch.tensor(rng.normal(size=(s, r)), device=cuda)
+        cols, t = _random_table(s, r, k, fused, rng, cuda, dtype)
+        q = torch.tensor(rng.normal(size=(s, r)), device=cuda).to(dtype)
         fn, ref = ((hbmc_trisolve_fused, hbmc_trisolve_fused_ref) if fused
                    else (hbmc_trisolve, hbmc_trisolve_ref))
+        name = "hbmc_trisolve_fused" if fused else "hbmc_trisolve"
         want = ref(*t, q)
         seg = barrier_segments(cols, fused)
         for cut, launches in ((seg, seg.size), (np.arange(n_steps), n_steps),
                               (None, seg.size)):
+            kernels.reset_launch_counts()
             z, n = _cuda_launched(lambda: fn(*t, q, segments=cut))
-            assert n == launches and torch.equal(z, want), (fused, cut)
+            assert n == launches and torch.equal(z, want), (r, dtype, fused,
+                                                            cut)
+            assert kernels.forwarding_counts()[name] == _paths(
+                seg if cut is None else cut, n_steps, k, r)
+        assert (segments.lane_group(k, r) > 1) == (
+            k > segments.ON_CHIP_MAX_K and r == 300)
+
+
+@pytest.mark.parametrize("case", ["nan", "holes"])
+@pytest.mark.parametrize("k", [11, 80])
+def test_lane_group_path_nan_and_holes(cuda, k, case):
+    """B1 and B5 on the lane-group path (R = 300): a NaN in q reaches the
+    same entries, with the same bits elsewhere, as in the plain version
+    (on a table of 20% live entries, so that it reaches some of them
+    only); and a table with holes (the packing's S*R, and positions past
+    it) in every row, first and last entries among them, stays bitwise."""
+    s, r = 5, 300
+    assert segments.lane_group(k, r) > 1
+    rng = np.random.default_rng(100 + k)
+    for fused in (True, False):
+        cols, t = _random_table(s, r, k, fused, rng, cuda)
+        m = s * r
+        q = torch.tensor(rng.normal(size=(s, r)), device=cuda)
+        holes = rng.random(cols.shape) < (0.8 if case == "nan" else 0.3)
+        holes[..., 0] = holes[..., -1] = True
+        cols = np.where(holes, rng.integers(m, m + 3, size=cols.shape),
+                        cols).astype(np.int32)
+        t[0] = torch.tensor(cols, device=cuda)
+        if case == "nan":
+            q[1, 7] = float("nan")
+        fn, ref = ((hbmc_trisolve_fused, hbmc_trisolve_fused_ref) if fused
+                   else (hbmc_trisolve, hbmc_trisolve_ref))
+        want = ref(*t, q)
+        seg = barrier_segments(cols, fused)
+        for cut in (seg, np.arange(cols.shape[0])):
+            z = fn(*t, q, segments=cut)
+            torch.testing.assert_close(z, want, rtol=0, atol=0,
+                                       equal_nan=True)
+        if case == "nan":
+            assert torch.isnan(z).any() and not torch.isnan(z).all()
 
 
 def test_segmented_kernels_repeat_bitwise(cuda):
@@ -581,17 +640,21 @@ def test_segment_arguments_are_checked(cuda):
                           q[..., 0].contiguous(), segments=bad)
 
 
-def _paths(starts, n_steps, k):
+def _paths(starts, n_steps, k, r):
     """The launches of a cut on each path of B1 / B5: ``on_chip`` for a
     segment of at least ``ON_CHIP_MIN_STEPS`` steps of a table of at most
     ``ON_CHIP_MAX_K`` entries a row, else ``plain``; every launch of a
-    wider table ``wide``."""
+    wider table ``grouped`` where its lane group
+    (``segments.lane_group(k, r)``) is more than one thread, else
+    ``wide``."""
     lengths = np.diff(np.append(starts, n_steps))
+    none = {"on_chip": 0, "plain": 0, "wide": 0, "grouped": 0}
+    if segments.lane_group(k, r) > 1:
+        return {**none, "grouped": int(lengths.size)}
     if k > segments.ON_CHIP_MAX_K:
-        return {"on_chip": 0, "plain": 0, "wide": int(lengths.size)}
+        return {**none, "wide": int(lengths.size)}
     on_chip = int((lengths >= segments.ON_CHIP_MIN_STEPS).sum())
-    return {"on_chip": on_chip, "plain": int(lengths.size) - on_chip,
-            "wide": 0}
+    return {**none, "on_chip": on_chip, "plain": int(lengths.size) - on_chip}
 
 
 def _fem2d_p1(n):
@@ -625,19 +688,31 @@ def _q1_elasticity(m):
 
 def test_q1_elasticity_plan_matches_the_plain_reference(cuda):
     """The audikw_1 cell's plan (block 16, w 8, SELL, round-major, f64) at
-    8 bricks a side on the card, B1 and B2 on their wide-row paths,
-    against the plain reference in the plan's ordering
+    8 bricks a side on the card, B1 on its lane-group path (the plan's few
+    lanes: ``segments.lane_group``) and B2 on its wide-row path, against
+    the plain reference in the plan's ordering
     (``portbench/reference/iccg_plain.py``, on the CPU): one apply to
-    1e-12, the iteration count and status exactly, the solution to
-    1e-10."""
+    1e-12, the iteration count and status exactly, the solution to 1e-10;
+    and B1 bitwise B3's column 0 on the plan's table."""
     plain = _portbench_module("reference", "iccg_plain")
     a = _q1_elasticity(8)
     plan = build_plan(a, block_size=16, w=8, device=cuda)
     factor = plain.ic0(a, plan._perm)
     b = np.random.default_rng(8).normal(size=a.shape[0])
+    t = plan._precond.tables
+    assert segments.lane_group(t.cols.shape[2], t.lanes) > 1
     kernels.reset_launch_counts()
     z = plan.extract_solution(plan._precond(plan.embed_rhs(b)))
-    assert kernels.forwarding_counts()["hbmc_trisolve_fused"]["wide"] > 0
+    assert kernels.forwarding_counts()["hbmc_trisolve_fused"] == _paths(
+        t.segments, 2 * t.n_steps, t.cols.shape[2], t.lanes)
+    assert kernels.forwarding_counts()["hbmc_trisolve_fused"]["grouped"] > 0
+    qb = torch.tensor(np.random.default_rng(9).normal(
+        size=(t.n_steps, t.lanes, 3)), device=cuda)
+    assert torch.equal(
+        hbmc_trisolve_fused(t.cols, t.vals, t.dinv, qb[..., 0].contiguous(),
+                            segments=t.segments),
+        hbmc_trisolve_fused_batched(t.cols, t.vals, t.dinv, qb,
+                                    segments=t.segments)[:, 0])
     want = plain.apply(factor, torch.from_numpy(b)).numpy()
     assert np.linalg.norm(z - want) <= 1e-12 * np.linalg.norm(want)
     rep = plan.solve(b, rtol=1e-7)
@@ -689,10 +764,11 @@ def test_single_rhs_on_chip_path_bitwise_plain_and_per_step_cut(cuda, case,
     """B1 and B5 on the on-chip path: own-lane chains at distances from 1
     to past the ring (RING_STEPS), launches of 1, 2, 3, 16, 32 and 2S
     steps and one across the fused table's turn, K odd, even, at
-    ON_CHIP_MAX_K (8) and past it (11: the plain path); and the
-    P1-triangle plan of block 16, w 8 whose launches run 8-32 steps, as the
-    thermal2 cell's.  Bitwise the plain version and the per-step cut (every
-    launch on the plain path), with the launches of each path counted."""
+    ON_CHIP_MAX_K (8) and past it (11: the lane-group path, 8 threads a
+    lane); and the P1-triangle plan of block 16, w 8 whose launches run
+    8-32 steps, as the thermal2 cell's.  Bitwise the plain version and the
+    per-step cut (every launch off the on-chip path), with the launches of
+    each path counted."""
     for lab, fused, tab, cuts in _on_chip_cases(case):
         cols, vals, dinv = (torch.tensor(x, device=cuda) for x in tab)
         vals, dinv = vals.to(dtype), dinv.to(dtype)
@@ -707,7 +783,7 @@ def test_single_rhs_on_chip_path_bitwise_plain_and_per_step_cut(cuda, case,
         kernels.reset_launch_counts()
         step = fn(cols, vals, dinv, q, segments=np.arange(n_steps))
         assert kernels.forwarding_counts()[name] == _paths(
-            np.arange(n_steps), n_steps, cols.shape[2])
+            np.arange(n_steps), n_steps, cols.shape[2], cols.shape[1])
         assert torch.equal(step, want), lab
         served = 0
         for cut in cuts:
@@ -715,7 +791,7 @@ def test_single_rhs_on_chip_path_bitwise_plain_and_per_step_cut(cuda, case,
             z = fn(cols, vals, dinv, q, segments=cut)
             assert torch.equal(z, want), (lab, cut.tolist())
             assert kernels.forwarding_counts()[name] == _paths(
-                cut, n_steps, cols.shape[2])
+                cut, n_steps, cols.shape[2], cols.shape[1])
             served += segments.forwarded_reads(tab[0], cut, fused).sum()
         assert (served > 0) == (cols.shape[2] <= segments.ON_CHIP_MAX_K), lab
 
@@ -762,11 +838,12 @@ def test_cuda_launch_counts_per_kernel(cuda):
         **dict.fromkeys(kernels.launch_counts(), 1), "sell_spmv_batched": 2}
     assert kernels.forwarding_counts() == {
         "hbmc_trisolve_fused": _paths(t.segments, 2 * t.n_steps,
-                                      t.cols.shape[2]),
+                                      t.cols.shape[2], t.lanes),
         "hbmc_trisolve": _paths(sw.segments, sw.cols.shape[0],
-                                sw.cols.shape[2])}
+                                sw.cols.shape[2], sw.cols.shape[1])}
     assert kernels.forwarding_counts()["hbmc_trisolve_fused"]["on_chip"] > 0
-    # the third path: the audikw_1 cell's matrix family, K = 80
+    # the lane-group path: the audikw_1 cell's matrix family, K = 80, on
+    # few lanes
     a = _q1_elasticity(4)
     wide = build_plan(a, **kw)._precond.tables
     wide_idx = build_plan(a, layout="index", **kw)._precond.kernel.fwd
@@ -779,11 +856,12 @@ def test_cuda_launch_counts_per_kernel(cuda):
     hbmc_trisolve(wide_idx.cols, wide_idx.vals, wide_idx.dinv,
                   torch.zeros(tuple(wide_idx.dinv.shape), dtype=torch.float64,
                               device=cuda), segments=wide_idx.segments)
+    assert segments.lane_group(wide.cols.shape[2], wide.lanes) == 32
     assert kernels.forwarding_counts() == {
-        "hbmc_trisolve_fused": {"on_chip": 0, "plain": 0,
-                                "wide": int(wide.segments.size)},
-        "hbmc_trisolve": {"on_chip": 0, "plain": 0,
-                          "wide": int(wide_idx.segments.size)}}
+        "hbmc_trisolve_fused": {"on_chip": 0, "plain": 0, "wide": 0,
+                                "grouped": int(wide.segments.size)},
+        "hbmc_trisolve": {"on_chip": 0, "plain": 0, "wide": 0,
+                          "grouped": int(wide_idx.segments.size)}}
     assert segments.analysed() == [
         segments.Analysed(True, 2 * wide.n_steps, wide.lanes,
                           wide.cols.shape[2], int(wide.segments.size)),

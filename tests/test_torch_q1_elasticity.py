@@ -306,30 +306,41 @@ def test_analysed_records_the_cell_plans_table():
 def test_forwarding_counts_put_wide_tables_under_wide(monkeypatch, fused, k):
     """The wrappers' accounting of the C entry's launches, with the entry
     replaced: 5 launches, 2 of them on chip where K <= ON_CHIP_MAX_K (the
-    entry reports none on chip for a wider table)."""
-    s, r = 4, 3
+    entry reports none on chip for a wider table), all 5 on the lane-group
+    path where ``segments.lane_group(K, R)`` > 1 (3 lanes; at 70,000 a
+    wide table's group is 1), and the rest under ``plain`` or ``wide`` by
+    K."""
+    s = 4
     n_steps = 2 * s if fused else s
-    cols = torch.zeros((n_steps, r, k), dtype=torch.int32)
-    vals = torch.zeros((n_steps, r, k), dtype=torch.float64)
-    dinv = torch.ones((n_steps, r), dtype=torch.float64)
-    q = torch.zeros((s, r), dtype=torch.float64)
-    on_chip = 2 if k <= segments.ON_CHIP_MAX_K else 0
-
-    def entry(name, cols, vals, dinv, q, segs, fused_):
-        return torch.zeros(s * r, dtype=torch.float64), 5, on_chip
-
     monkeypatch.setattr(trisolve_mod, "runs_plain", lambda t: False)
-    monkeypatch.setattr(trisolve_mod, "_run", entry)
-    kernels.reset_launch_counts()
-    fn = (kernels.hbmc_trisolve_fused if fused else kernels.hbmc_trisolve)
-    fn(cols, vals, dinv, q, segments=np.array([0], dtype=np.int32))
     name = "hbmc_trisolve_fused" if fused else "hbmc_trisolve"
     wide = k > segments.ON_CHIP_MAX_K
-    assert kernels.forwarding_counts()[name] == {
-        "on_chip": on_chip, "plain": 0 if wide else 5 - on_chip,
-        "wide": 5 if wide else 0}
-    assert sum(kernels.forwarding_counts()[name].values()) == \
-        kernels.cuda_launch_counts()[name]
+    for r in (3, 70_000):
+        # the entry is replaced, so the operands need only their shapes
+        cols = torch.zeros((1, 1, 1), dtype=torch.int32).expand(n_steps, r,
+                                                                k)
+        vals = torch.zeros((1, 1, 1), dtype=torch.float64).expand(n_steps,
+                                                                  r, k)
+        dinv = torch.ones((n_steps, r), dtype=torch.float64)
+        q = torch.zeros((s, r), dtype=torch.float64)
+        on_chip = 2 if not wide else 0
+        grouped = 5 if segments.lane_group(k, r) > 1 else 0
+        assert grouped == (5 if wide and r == 3 else 0)
+
+        def entry(name, cols, vals, dinv, q, segs, fused_):
+            return (torch.zeros(s * r, dtype=torch.float64), 5, on_chip,
+                    grouped)
+
+        monkeypatch.setattr(trisolve_mod, "_run", entry)
+        kernels.reset_launch_counts()
+        fn = (kernels.hbmc_trisolve_fused if fused
+              else kernels.hbmc_trisolve)
+        fn(cols, vals, dinv, q, segments=np.array([0], dtype=np.int32))
+        assert kernels.forwarding_counts()[name] == {
+            "on_chip": on_chip, "plain": 0 if wide else 5 - on_chip,
+            "wide": 5 - grouped if wide else 0, "grouped": grouped}, r
+        assert sum(kernels.forwarding_counts()[name].values()) == \
+            kernels.cuda_launch_counts()[name]
     kernels.reset_launch_counts()
 
 

@@ -599,6 +599,46 @@ def test_on_chip_constants_mirror_the_kernel_source():
     src = (Path(segments.__file__).resolve().parent / "csrc"
            / "hbmc_trisolve.cu").read_text()
     for name, there in (("ON_CHIP_MIN_STEPS", "ON_CHIP_MIN_STEPS"),
-                        ("RING_STEPS", "RING_STEPS"), ("ON_CHIP_MAX_K", "KP")):
-        got = re.search(rf"constexpr int {there} = (\d+);", src)
-        assert got and int(got.group(1)) == getattr(segments, name), name
+                        ("RING_STEPS", "RING_STEPS"), ("ON_CHIP_MAX_K", "KP"),
+                        ("GROUP_MAX", "GROUP_MAX"),
+                        ("GROUP_THREADS", "GROUP_THREADS")):
+        got = re.search(rf"constexpr int {there} = (\d+)(?: \* (\d+))?;",
+                        src)
+        assert got, name
+        value = int(got.group(1)) * int(got.group(2) or 1)
+        assert value == getattr(segments, name), name
+
+
+# -- the lane-group rule (segments.lane_group) --------------------------------
+
+@pytest.mark.parametrize("shape, group", [
+    ((80, 1_580), 32),        # the audikw_1 cell's fused table
+    ((80, 111), 32),          # its plan at 16 bricks a side
+    ((15, 140_700), 1),       # the g3_circuit cell's (R about 21.3 n / 240)
+    ((6, 19_424), 1),         # the thermal2 cell's: K <= ON_CHIP_MAX_K
+    ((4, 32_768), 1),         # the 1M laplace plan's
+], ids=["audikw_1", "audikw_1-16", "g3_circuit", "thermal2", "laplace-1m"])
+def test_lane_group_on_the_cells_tables(shape, group):
+    assert segments.lane_group(*shape) == group
+
+
+@pytest.mark.parametrize("k, r, group", [
+    # K: at ON_CHIP_MAX_K a thread a lane, past it the largest power of
+    # two not above K
+    (8, 1, 1), (9, 1, 8), (15, 1, 8), (16, 1, 16), (31, 1, 16), (32, 1, 32),
+    (129, 1, 32), (1, 1, 1),
+    # R x G <= GROUP_THREADS (135,168): at the edge and one lane past it
+    (80, 4_224, 32), (80, 4_225, 16), (80, 8_448, 16), (80, 8_449, 8),
+    (80, 67_584, 2), (80, 67_585, 1), (9, 16_896, 8), (9, 16_897, 4),
+    (11, 200_000, 1),
+])
+def test_lane_group_edges(k, r, group):
+    """Each condition of the rule at its edge: G <= GROUP_MAX, G <= K, R x
+    G <= GROUP_THREADS; G = 1 wherever K <= ON_CHIP_MAX_K."""
+    assert segments.lane_group(k, r) == group
+    g = segments.lane_group(k, r)
+    if g > 1:
+        assert g & (g - 1) == 0 and g <= min(segments.GROUP_MAX, k)
+        assert r * g <= segments.GROUP_THREADS
+        assert (2 * g > min(segments.GROUP_MAX, k)
+                or r * 2 * g > segments.GROUP_THREADS)
