@@ -72,10 +72,13 @@ its last line:
    bytes it must move: per trisolve apply (B1 in turns A B C C B A: A
    B3's body at B = 1 with the segments, B B1 with the segments, C B1 one
    launch per step; device time of each under the profiler; then B1 on
-   the thermal2 cell's plan and on the 1M laplace plan: segment lengths,
-   launches by path, the share of live gathers served on chip, and ms an
-   apply by CUDA events on replayed graphs beside the time before the
-   on-chip path), per SpMV,
+   the thermal2, audikw_1 and g3_circuit cells' plans and on the 1M
+   laplace plan: segment lengths, lane group, launches by path, the share
+   of live gathers served on chip, bitwise the plain version and the
+   per-step cut on a seeded right-hand side, and ms an apply by CUDA
+   events on replayed graphs beside the time before the path it takes;
+   B5 on the audikw_1 cell's index-layout plan: launches by path, bitwise
+   the plain version and the per-step cut), per SpMV,
    per PCG iteration, the plain versions, and the cuSPARSE CSR SpMV
    (``torch.mv`` on a CSR tensor, timed as a yardstick only; the port
    never calls it), B2 through its wrapper and through the wrapper's
@@ -670,10 +673,11 @@ def b1_replay_ms(plan, device, applies: int = 20, replays: int = 10,
             for _ in range(turns)]
 
 
-def cell_plan(config: str, device, sizes: dict | None = None):
+def cell_plan(config: str, device, sizes: dict | None = None, **over):
     """The plan of the benchmark's configuration ``config`` (its matrix
     and knobs, ``portbench/configs/<config>.json``), with the matrix
-    parameters ``sizes`` replaced where given."""
+    parameters ``sizes`` and the plan's knobs ``over`` replaced where
+    given."""
     import torch
 
     from portbench.lib import harness, spec
@@ -682,7 +686,8 @@ def cell_plan(config: str, device, sizes: dict | None = None):
                               f"{config}.json")
     if sizes is not None:
         cfg = {**cfg, "matrix": {**cfg["matrix"], **sizes}}
-    knobs = dict(cfg["plan"], dtype=getattr(torch, cfg["plan"]["dtype"]))
+    knobs = dict(cfg["plan"], dtype=getattr(torch, cfg["plan"]["dtype"]),
+                 **over)
     return build_plan(harness.make_matrix(cfg, 0), device=device, **knobs)
 
 
@@ -692,15 +697,17 @@ def b1_on_chip_phase(plans: dict, device) -> None:
     G (``segments.lane_group``), the launches of one apply on each path
     (``kernels.forwarding_counts()``: on chip, plain, wide for K past
     ``ON_CHIP_MAX_K`` at G = 1, and grouped for G > 1), the share of live
-    gathers served on chip (``segments.forwarded_reads``), and B1 an
-    apply by CUDA events on replayed graphs beside the time before the
-    path it takes."""
+    gathers served on chip (``segments.forwarded_reads``), B1 on a seeded
+    right-hand side bitwise its plain version and the per-step cut
+    (``check_segmented``), and B1 an apply by CUDA events on replayed
+    graphs beside the time before the path it takes."""
     import numpy as np
     import torch
 
     from repro_torch import kernels
-    from repro_torch.kernels import segments
-    for label, plan in plans.items():
+    from repro_torch.kernels import (hbmc_trisolve_fused,
+                                     hbmc_trisolve_fused_ref, segments)
+    for seed, (label, plan) in enumerate(plans.items(), 40):
         t = plan._precond.tables
         cols = t.cols.cpu().numpy()
         n_steps, r_, k_ = cols.shape
@@ -735,6 +742,11 @@ def b1_on_chip_phase(plans: dict, device) -> None:
             raise AssertionError(f"{label}: launches by path {paths}, "
                                  f"segments of {lengths} steps, analysed "
                                  f"{analysed}")
+        q = torch.tensor(np.random.default_rng(seed).normal(
+            size=(t.n_steps, t.lanes)), device=device).to(plan.dtype)
+        check_segmented(hbmc_trisolve_fused, hbmc_trisolve_fused_ref, t, q,
+                        f"B1 on the {label} plan")
+        del q
         ms = b1_replay_ms(plan, device)
         before = B1_APPLY_MS_BEFORE.get(label) if device.type == "cuda" \
             else None
@@ -744,10 +756,45 @@ def b1_on_chip_phase(plans: dict, device) -> None:
             f"{shown} steps; segments.analysed() {analysed}; lane group "
             f"G = {group}; one apply's launches by path {paths}; "
             f"{served:,} of {live:,} live gathers served on chip "
-            f"({served / max(live, 1):.3f}); ms an apply, replayed graphs "
+            f"({served / max(live, 1):.3f}); bitwise the plain version and "
+            f"the per-step cut; ms an apply, replayed graphs "
             f"of 20: {' / '.join(f'{v:.4f}' for v in ms)} (before its "
             f"path: {fmt_ms(before)}; "
             f"{1e3 * min(ms) / n_steps:.3f} us a step)")
+
+
+def b5_lane_group_phase(plan_idx, label: str, device, seed: int) -> None:
+    """B5 on both sweep tables of an index-layout plan of more than
+    ``ON_CHIP_MAX_K`` entries a row: one sweep's launches by path as its
+    lane group (``segments.lane_group``) predicts, then
+    ``check_sweep_kernels`` (bitwise the plain version and the per-step
+    cut, and B6 at B = 1 bitwise B5)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels import hbmc_trisolve, segments
+    kp = plan_idx._precond.kernel
+    seen = []
+    for sweep, t in (("fwd", kp.fwd), ("bwd", kp.bwd)):
+        n_steps, r_, k_ = t.cols.shape
+        if k_ <= segments.ON_CHIP_MAX_K:
+            raise AssertionError(f"{label} {sweep}: K = {k_}, not a wide "
+                                 f"table")
+        group = segments.lane_group(k_, r_)
+        kernels.reset_launch_counts()
+        hbmc_trisolve(t.cols, t.vals, t.dinv,
+                      torch.zeros(tuple(t.dinv.shape), dtype=plan_idx.dtype,
+                                  device=device), segments=t.segments)
+        paths = kernels.forwarding_counts()["hbmc_trisolve"]
+        n = int(t.segments.size) if device.type == "cuda" else 0
+        want = {"on_chip": 0, "plain": 0, "wide": 0 if group > 1 else n,
+                "grouped": n if group > 1 else 0}
+        if paths != want:
+            raise AssertionError(f"{label} {sweep}: launches by path {paths}"
+                                 f", want {want}")
+        seen.append(f"{sweep} {(n_steps, r_, k_)} G = {group} {paths}")
+    log(f"  B5 on the {label} plan: " + "; ".join(seen))
+    check_sweep_kernels(plan_idx, label, seed, sizes=(1,))
 
 
 def embedded(plan, rhs):
@@ -3717,6 +3764,9 @@ def run(device: str = "cuda", grid: int = MAIN_GRID, scale: str = "bench",
             "audikw_1", dev, None if on_card else {"m": 3})}, dev)
     b1_on_chip_phase({"g3_circuit cell": cell_plan(
         "g3_circuit", dev, None if on_card else {"n": 4 * grid})}, dev)
+    b5_lane_group_phase(cell_plan(
+        "audikw_1", dev, None if on_card else {"m": 3}, layout="index"),
+        "audikw_1 cell, index layout", dev, 45)
     tri_launches = cuda_launches_per_call(lambda: hbmc_trisolve_fused(
         t.cols, t.vals, t.dinv, q, segments=t.segments))
     tri_plain_ms = time_ms(

@@ -128,7 +128,12 @@
 //   step, 29 launches of ~5.6 us start-up each).  Slower: G = 16 or 8
 //   (fewer threads in flight a lane), the first thread's products read 16
 //   ahead in registers or in pairs, reads through __ldcg; GROUP_AHEAD 2
-//   reads the same as 3.
+//   reads the same as 3.  Where the rule picks G < 32 the group still
+//   beats a thread a lane, bitwise, on graph-Laplacian plans of the
+//   g3_circuit family (ms an apply, plain -> grouped): G = 16 at (864,
+//   5,440, 19) 6.36 -> 1.85; G = 8 at (448, 8,935, 13) 1.83 -> 0.92; G = 4
+//   at (480, 26,843, 14) 3.19 -> 2.33-2.46; G = 2 at (480, 53,523, 14)
+//   4.62 -> 4.38.  The gain shrinks as R x G nears GROUP_THREADS.
 //
 //   The paths do the same arithmetic in the same order, so they are
 //   bitwise each other and the plain version; the host picks one per

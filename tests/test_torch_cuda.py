@@ -486,14 +486,19 @@ def test_single_rhs_kernels_on_random_tables(cuda, k):
     and K below, at and past the entries the kernel prefetches (8), in f64
     and f32: B1 and B5 bitwise their plain versions with the computed
     segments, one per step, and None, with the launches of each path as
-    the rule predicts.  Past 8 entries R = 300 takes the lane-group path
-    (``segments.lane_group``: 8 threads a lane at K = 11, 32 above; K =
-    129 runs two chunks of a row) and R = 67,585, on two rounds, the plain
-    one (``wide``)."""
+    the rule predicts.  Past 8 entries the lane-group path
+    (``segments.lane_group``) runs each group size the rule picks: R = 300
+    gives 8 threads a lane at K = 11 and 32 above, and on two rounds R =
+    4,225 gives 16 (8 at K = 11), 33,792 gives 4 and 67,584 gives 2; a row
+    of K = 129 runs in 2 chunks at G = 32, and rows run in 1 to 17 chunks
+    at G = 2-16.  R = 67,585 takes the plain path (``wide``)."""
     rng = np.random.default_rng(k)
     shapes = [(5, 300)]
     if k > segments.ON_CHIP_MAX_K:
-        shapes.append((2, segments.GROUP_THREADS // 2 + 1))
+        shapes += [(2, 4_225), (2, 33_792), (2, 67_584),
+                   (2, segments.GROUP_THREADS // 2 + 1)]
+        assert [segments.lane_group(k, r) for _, r in shapes] == (
+            [8, 8, 4, 2, 1] if k < 16 else [32, 16, 4, 2, 1])
     for (s, r), dtype, fused in itertools.product(
             shapes, (torch.float64, torch.float32), (True, False)):
         n_steps = 2 * s if fused else s
@@ -513,7 +518,7 @@ def test_single_rhs_kernels_on_random_tables(cuda, k):
             assert kernels.forwarding_counts()[name] == _paths(
                 seg if cut is None else cut, n_steps, k, r)
         assert (segments.lane_group(k, r) > 1) == (
-            k > segments.ON_CHIP_MAX_K and r == 300)
+            k > segments.ON_CHIP_MAX_K and r < 67_585)
 
 
 @pytest.mark.parametrize("case", ["nan", "holes"])
