@@ -695,8 +695,8 @@ def b1_on_chip_phase(plans: dict, device) -> None:
     """Phase 4: B1 on each plan of ``plans`` (label -> plan): its segment
     lengths, the table's record in ``segments.analysed()``, its lane group
     G (``segments.lane_group``), the launches of one apply on each path
-    (``kernels.forwarding_counts()``: on chip, plain, wide for K past
-    ``ON_CHIP_MAX_K`` at G = 1, and grouped for G > 1), the share of live
+    (``kernels.forwarding_counts()``: on chip, plain and grouped, as
+    ``segments.single_paths`` gives them), the share of live
     gathers served on chip (``segments.forwarded_reads``), B1 on a seeded
     right-hand side bitwise its plain version and the per-step cut
     (``check_segmented``), and B1 an apply by CUDA events on replayed
@@ -728,13 +728,8 @@ def b1_on_chip_phase(plans: dict, device) -> None:
         paths = kernels.forwarding_counts()["hbmc_trisolve_fused"]
         analysed = segments.analysed()
         group = segments.lane_group(k_, r_)
-        wide = k_ > segments.ON_CHIP_MAX_K
-        on_chip = 0 if wide else sum(n >= segments.ON_CHIP_MIN_STEPS
-                                     for n in lengths)
-        want = {"on_chip": on_chip,
-                "plain": 0 if wide else len(lengths) - on_chip,
-                "wide": len(lengths) if wide and group == 1 else 0,
-                "grouped": len(lengths) if group > 1 else 0}
+        want = path_counts(segments.single_paths(k_, r_, n_steps // 2,
+                                                 t.segments, True))
         if device.type != "cuda":
             want = dict.fromkeys(want, 0)
         if paths != want or analysed != [segments.Analysed(
@@ -763,10 +758,19 @@ def b1_on_chip_phase(plans: dict, device) -> None:
             f"{1e3 * min(ms) / n_steps:.3f} us a step)")
 
 
+def path_counts(codes) -> dict[str, int]:
+    """Launches by path (``kernels.forwarding_counts()``'s keys) of the
+    ``segments.single_paths`` codes ``codes``."""
+    from repro_torch.kernels import segments
+    return {"on_chip": int((codes == segments.ON_CHIP).sum()),
+            "plain": int((codes == segments.PLAIN).sum()),
+            "grouped": int((codes > segments.ON_CHIP).sum())}
+
+
 def b5_lane_group_phase(plan_idx, label: str, device, seed: int) -> None:
     """B5 on both sweep tables of an index-layout plan of more than
-    ``ON_CHIP_MAX_K`` entries a row: one sweep's launches by path as its
-    lane group (``segments.lane_group``) predicts, then
+    ``ON_CHIP_MAX_K`` entries a row: one sweep's launches by path as
+    ``segments.single_paths`` gives them, then
     ``check_sweep_kernels`` (bitwise the plain version and the per-step
     cut, and B6 at B = 1 bitwise B5)."""
     import torch
@@ -786,9 +790,10 @@ def b5_lane_group_phase(plan_idx, label: str, device, seed: int) -> None:
                       torch.zeros(tuple(t.dinv.shape), dtype=plan_idx.dtype,
                                   device=device), segments=t.segments)
         paths = kernels.forwarding_counts()["hbmc_trisolve"]
-        n = int(t.segments.size) if device.type == "cuda" else 0
-        want = {"on_chip": 0, "plain": 0, "wide": 0 if group > 1 else n,
-                "grouped": n if group > 1 else 0}
+        want = path_counts(segments.single_paths(k_, r_, n_steps, t.segments,
+                                                 False))
+        if device.type != "cuda":
+            want = dict.fromkeys(want, 0)
         if paths != want:
             raise AssertionError(f"{label} {sweep}: launches by path {paths}"
                                  f", want {want}")

@@ -19,13 +19,11 @@ same block runs eagerly, with no graph, on the same read-every-``k``
 schedule.
 
 A capture issues the kernel launches of one block without running them, and
-a replay runs them without the wrappers' Python: the loop takes the
-capture's issue back out of the launch counters (``kernels.launch_counts``,
-``kernels.cuda_launch_counts``, and the mesh's all-gathers,
-``mesh.gather_counts``) and adds the block's launches once per replay, so
-the counters count the launches that ran on the card.
-``loop_counts`` counts the flag reads, the blocks run, the replays among
-them and the captures.
+a replay runs them without the wrappers' Python: the loop takes what the
+capture counted back out of ``spans``' counters (the kernels' launches and
+bytes, the mesh's all-gathers) and adds it once per replay, so the
+counters count what ran on the card.  ``loop_counts`` counts the flag
+reads, the blocks run, the replays among them and the captures.
 
 Under a mesh (``build_plan(mesh=...)``) the block holds the mesh's
 collectives too, and they are captured with it: the apply before the loop
@@ -44,9 +42,7 @@ from typing import Callable
 
 import torch
 
-from .. import kernels
-from ..spans import span
-from . import mesh
+from ..spans import add, count, counts, reset_counts, snapshot, span
 
 #: PCG steps per block, and so per host read of the loop's flag.  On the
 #: H100 (chip_smoke.py phase 4, 1M unknowns) k = 8 and 16 give the same ms
@@ -54,32 +50,24 @@ from . import mesh
 #: the stop (k - 1 at most).
 _STEPS_PER_READ = 8
 
-_counts = {"reads": 0, "blocks": 0, "replays": 0, "captures": 0}
+_EVENTS = ("reads", "blocks", "replays", "captures")
 
 State = tuple[torch.Tensor, ...]
-
-
-def _counter_values() -> dict[tuple, int]:
-    """Every launch and all-gather counter, keyed by (module, attribute)."""
-    values = kernels._counter_values()
-    values.update({(mesh, attr): getattr(mesh, attr)
-                   for attr in mesh._COUNTERS})
-    return values
 
 
 def loop_counts() -> dict[str, int]:
     """Flag reads, blocks run (eager and replayed), replays and graph
     captures since the last reset, over every loop of the process."""
-    return dict(_counts)
+    got = counts("loop.")
+    return {event: got.get(event, 0) for event in _EVENTS}
 
 
 def reset_loop_counts() -> None:
-    for key in _counts:
-        _counts[key] = 0
+    reset_counts("loop.")
 
 
 def _read(flag: torch.Tensor) -> bool:
-    _counts["reads"] += 1
+    count("loop.reads")
     return bool(flag.item())
 
 
@@ -148,7 +136,7 @@ class BlockLoop:
         self.graph: torch.cuda.CUDAGraph | None = None
         self._static: State | None = None
         self._flag: torch.Tensor | None = None
-        self._launches: dict | None = None
+        self._counted: dict[str, int] = {}
 
     def _block(self, step: Callable[[State], State], state: State) -> State:
         for _ in range(self.k):
@@ -182,10 +170,7 @@ class BlockLoop:
                 s.copy_(t)
         live = True
         while live:
-            self.graph.replay()
-            kernels._add_counter_values(self._launches)
-            _counts["blocks"] += 1
-            _counts["replays"] += 1
+            self._replay()
             blocks += 1
             live = _read(self._flag)
         # tensors of the caller's own: the next replay overwrites the
@@ -200,7 +185,7 @@ class BlockLoop:
         called again)."""
         state = tuple(state)
         if state[0].device.type != "cuda":
-            _counts["blocks"] += 1
+            count("loop.blocks")
             return self._block(step, state)
         if self.graph is None:
             out = self._first_block(state, step)
@@ -208,18 +193,22 @@ class BlockLoop:
             return out
         for s, t in zip(self._static, state, strict=True):
             s.copy_(t)
-        self.graph.replay()
-        kernels._add_counter_values(self._launches)
-        _counts["blocks"] += 1
-        _counts["replays"] += 1
+        self._replay()
         return tuple(s.clone() for s in self._static)
+
+    def _replay(self) -> None:
+        """Replay the graph, and count what it ran."""
+        self.graph.replay()
+        add(self._counted)
+        count("loop.blocks")
+        count("loop.replays")
 
     def _run_eager(self, state, step, flag) -> tuple[State, int]:
         blocks = 0
         live = True
         while live:
             state = self._block(step, state)
-            _counts["blocks"] += 1
+            count("loop.blocks")
             blocks += 1
             live = _read(flag(state))
         return state, blocks
@@ -234,7 +223,7 @@ class BlockLoop:
             with torch.cuda.stream(side):
                 state = self._block(step, state)
             torch.cuda.current_stream(dev).wait_stream(side)
-        _counts["blocks"] += 1
+        count("loop.blocks")
         return state
 
     def _capture(self, state: State, step, flag) -> None:
@@ -242,7 +231,7 @@ class BlockLoop:
         with span("loop.capture"):
             static = tuple(t.clone() for t in state)
             live = torch.zeros((), dtype=torch.bool, device=dev)
-            before = _counter_values()
+            before = snapshot()
             graph = torch.cuda.CUDAGraph()
             # no garbage collection while the stream captures: collecting
             # an unreachable plan would destroy its graphs, which CUDA
@@ -255,13 +244,14 @@ class BlockLoop:
                 if collecting:
                     gc.enable()
             torch.cuda.synchronize(dev)
-        after = _counter_values()
         # the capture issued one block's launches and ran none of them
-        self._launches = {key: after[key] - before[key] for key in after}
-        kernels._add_counter_values(self._launches, -1)
+        self._counted = {key: n - before.get(key, 0)
+                         for key, n in snapshot().items()
+                         if n != before.get(key, 0)}
+        add(self._counted, -1)
         self.graph, self._static, self._flag = graph, static, live
         self._cache.captures += 1
-        _counts["captures"] += 1
+        count("loop.captures")
 
     def _record(self, graph, dev, static: State, live: torch.Tensor,
                 step, flag) -> None:

@@ -6,9 +6,8 @@ The reference shards its plan over a ``jax.sharding.Mesh`` axis inside
 solves the same right-hand side) and each rank keeps only its block of the
 sharded operands.  ``axis_group`` gives one axis's process group, size and
 this rank's place on it; ``all_gather_`` is the one collective of the mesh
-path, counted per caller so that a run can show how many it issued
-(``gather_counts``; ``core.device_loop`` adds a replayed block's
-collectives to them as it adds its kernel launches).  ``gather_lanes``
+path, counted per caller in ``spans``' counters so that a run can show how
+many it issued (``gather_counts``; replayed blocks included).  ``gather_lanes``
 assembles a lane-sharded table from every rank's block, for the static
 checks of a built mesh plan (``analysis.validate_plan``); it is not on the
 solve path and is not counted.
@@ -23,21 +22,20 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-#: all-gathers issued by the mesh trisolve and by the mesh SpMV since the
-#: last reset (replayed graphs included)
-trisolve_gathers = 0
-spmv_gathers = 0
-_COUNTERS = ("trisolve_gathers", "spmv_gathers")
+from ..spans import count, counts, reset_counts
+
+#: the callers of ``all_gather_``: the mesh trisolve and the mesh SpMV
+_CALLERS = ("trisolve", "spmv")
 
 
 def gather_counts() -> dict[str, int]:
     """All-gathers since the last reset: ``{"trisolve": n, "spmv": n}``."""
-    return {"trisolve": trisolve_gathers, "spmv": spmv_gathers}
+    got = counts("mesh.gathers.")
+    return {who: got.get(who, 0) for who in _CALLERS}
 
 
 def reset_gather_counts() -> None:
-    global trisolve_gathers, spmv_gathers
-    trisolve_gathers = spmv_gathers = 0
+    reset_counts("mesh.")
 
 
 def axis_names(mesh) -> tuple[str, ...]:
@@ -59,11 +57,10 @@ def all_gather_(out: torch.Tensor, chunk: torch.Tensor,
     """Gather every rank's ``chunk`` into ``out`` along dim 0, in rank order
     (``chunk`` may be this rank's own block of ``out``: in place); counts
     one all-gather for ``who`` (``"trisolve"`` or ``"spmv"``)."""
-    name = f"{who}_gathers"
-    if name not in _COUNTERS:
+    if who not in _CALLERS:
         raise ValueError(f"unknown caller {who!r}")
     dist.all_gather_into_tensor(out, chunk, group=group)
-    globals()[name] += 1
+    count(f"mesh.gathers.{who}")
     return out
 
 

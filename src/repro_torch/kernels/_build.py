@@ -33,9 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _N = ctypes.POINTER(ctypes.c_int)   # out: the number of kernel launches
 # cols, vals, dinv, q, y, S, R, K, segment starts (host int32), their
-# count, stream, launches on the on-chip path (out), launches on the
-# lane-group path (out), launches
-_TRISOLVE = (_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _N, _N, _N)
+# count, each segment's path (host int32, segments.single_paths), stream,
+# launches
+_TRISOLVE = (_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _N)
 # cols, vals, dinv, q, y, S, R, K, B, segment starts (host int32), their
 # count, stream, launches
 _BATCHED_TRISOLVE = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _N)

@@ -11,13 +11,13 @@ own.  A wrapper called inside another (``sell_spmv_block`` runs
 ``sell_spmv``) is part of the outer node: a thread-local depth tells the
 two apart.
 
-Each outermost call also adds its operands' bytes to ``<name>_bytes`` here:
-every tensor argument once and the result once (unless it is an argument,
-as the shard step's state is), on the card and on the CPU alike.  For the
-trisolve and SpMV wrappers that is the bytes of their bound
-(``analysis.traffic.trisolve_bytes``, ``spmv_bytes``), the measured side of
-``analysis.traffic``'s kernel terms.  ``kernels.operand_bytes`` reads the
-counters beside the launch counters, and a replayed CUDA graph adds its
+Each outermost call also counts its operands' bytes
+(``spans.count("kernels.bytes.<name>")``): every tensor argument once and
+the result once (unless it is an argument, as the shard step's state is),
+on the card and on the CPU alike.  For the trisolve and SpMV wrappers that
+is the bytes of their bound (``analysis.traffic.trisolve_bytes``,
+``spmv_bytes``), the measured side of ``analysis.traffic``'s kernel terms.
+``kernels.operand_bytes`` reads them, and a replayed CUDA graph adds its
 block's bytes as it adds its launches.
 """
 from __future__ import annotations
@@ -29,6 +29,8 @@ from typing import Callable
 
 import torch
 from torch.utils._python_dispatch import _disable_current_modes
+
+from ..spans import count
 
 
 class _State(threading.local):
@@ -53,10 +55,8 @@ def observing(callback: Callable[[str, tuple, object], None]):
 
 def kernel_node(name: str):
     """Decorator of the wrapper ``name``: its body is one opaque node, and
-    its operand bytes count in ``<name>_bytes``."""
-    attr = f"{name}_bytes"
-    counters = globals()
-    counters[attr] = 0
+    its operand bytes count in ``kernels.bytes.<name>``."""
+    key = f"kernels.bytes.{name}"
 
     def deco(fn):
         @functools.wraps(fn)
@@ -83,7 +83,7 @@ def kernel_node(name: str):
                     has_out = has_out or a is out
             if not has_out and isinstance(out, torch.Tensor):
                 n += out.nbytes
-            counters[attr] += n
+            count(key, n)
             for callback in observers:
                 callback(name, args, out)
             return out

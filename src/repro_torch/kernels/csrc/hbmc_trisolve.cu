@@ -58,8 +58,8 @@
 //   stayed behind the previous step's store in program order, and its
 //   table operands could be loaded only one step ahead.
 //
-//   The on-chip path (run_segment_on_chip; a segment of at least
-//   ON_CHIP_MIN_STEPS steps, K <= KP, entries indexed in int32): no load of
+//   The on-chip path (run_segment_on_chip; the host picks it for a segment
+//   of a few steps or more, K <= KP, entries indexed in int32): no load of
 //   y waits on a store of the same launch.  Each live gather of step g is
 //   classified from (c, lane, g0, g) (read_step):
 //   * a slice that a step of the launch before g wrote -- by the segment
@@ -100,13 +100,14 @@
 //   table of many short segments and many lanes (g3_circuit's 240 rounds)
 //   needs for the occupancy that hides its gathers.
 //
-//   The lane-group path (segment_single_grouped; a table of K > KP entries
-//   a row whose lane group G = lane_group(K, R) is more than 1): where a
+//   The lane-group path (segment_single_grouped; the host picks it, and G,
+//   for a table of K > KP entries a row where a group fits): where a
 //   step has few lanes and long rows -- the audikw_1 cell's fused table
 //   (480, 1,580, 80) -- one thread a lane leaves ~0.4 warps an SM, each
 //   thread walking 80 entries one dependent load after another: latency,
 //   not bytes (19 us a step).  G threads of one warp take a lane instead
-//   (G <= GROUP_MAX, G <= K, R x G <= GROUP_THREADS, a power of two):
+//   (G a power of two, G <= GROUP_MAX, G <= K, R x G at most about half
+//   the card's resident threads):
 //   thread t loads entries t, t + G, ... of the row (coalesced across the
 //   group, evict-first, GROUP_AHEAD steps ahead), multiplies them by what
 //   they read, and puts the rounded products in shared memory; the
@@ -133,12 +134,12 @@
 //   g3_circuit family (ms an apply, plain -> grouped): G = 16 at (864,
 //   5,440, 19) 6.36 -> 1.85; G = 8 at (448, 8,935, 13) 1.83 -> 0.92; G = 4
 //   at (480, 26,843, 14) 3.19 -> 2.33-2.46; G = 2 at (480, 53,523, 14)
-//   4.62 -> 4.38.  The gain shrinks as R x G nears GROUP_THREADS.
+//   4.62 -> 4.38.  The gain shrinks as R x G nears its cap.
 //
 //   The paths do the same arithmetic in the same order, so they are
 //   bitwise each other and the plain version; the host picks one per
-//   segment and counts the launches of each (the on_chip and grouped
-//   out-parameters).
+//   segment (segments.single_paths) and passes its code to the entry point
+//   (launch_single).
 
 // B right-hand sides (B3, B6): fused_segment_batched replaces
 //   hbmc_trisolve_fused_batched (body _fused_batched_kernel);
@@ -188,9 +189,6 @@ namespace {
 constexpr int KP = 8;
 // B1 / B5: threads a block, one per lane.
 constexpr int SINGLE_THREADS = 128;
-// On-chip path: segments of at least this many steps take it (a shorter
-// one has at most one step to forward into).
-constexpr int ON_CHIP_MIN_STEPS = 3;
 // On-chip path: the most steps of its own outputs a thread keeps in its
 // ring in shared memory (a power of two; 32 KB a block in f64).
 constexpr int RING_STEPS = 32;
@@ -198,12 +196,10 @@ constexpr int RING_STEPS = 32;
 // READ_AHEAD steps, ahead of its compute.
 constexpr int AHEAD = 4;
 constexpr int READ_AHEAD = 2;
-// Lane-group path: at most GROUP_MAX threads (one warp) a lane, and R x G
-// at most GROUP_THREADS (about half the card's resident threads); each
+// Lane-group path: at most GROUP_MAX threads (one warp) a lane; each
 // thread of a group loads at most GP entries of a step's row ahead, so a
 // row's first chunk is at most G x GP entries.
 constexpr int GROUP_MAX = 32;
-constexpr int GROUP_THREADS = 132 * 1024;
 constexpr int GP = 4;
 // Lane-group path: a step's row loads GROUP_AHEAD steps ahead of its
 // compute, its reads one step ahead.
@@ -831,7 +827,7 @@ int launch_shard_step(const int32_t* cols, const T* vals, const T* dinv,
 
 // One launch per segment: segs holds the nseg ascending start steps on the
 // host (segs[0] == 0), segment i runs [segs[i], segs[i+1]) (the last up to
-// n_steps); launch(g0, g1) issues its kernel.  *launched counts the
+// n_steps); launch(i, g0, g1) issues its kernel.  *launched counts the
 // launches issued.
 template <typename Launch>
 int for_each_segment(const int32_t* segs, int nseg, int n_steps,
@@ -841,7 +837,7 @@ int for_each_segment(const int32_t* segs, int nseg, int n_steps,
     const int g0 = segs[i];
     const int g1 = i + 1 < nseg ? segs[i + 1] : n_steps;
     if (g1 <= g0 || g1 > n_steps) return (int)cudaErrorInvalidValue;
-    launch(g0, g1);
+    launch(i, g0, g1);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     ++*launched;
@@ -859,7 +855,7 @@ int launch_segments(const int32_t* cols, const T* vals, const T* dinv,
   const unsigned blocks =
       (unsigned)(((int64_t)r * nb + threads - 1) / threads);
   return for_each_segment(
-      segs, nseg, FUSED ? 2 * s : s, launched, [&](int g0, int g1) {
+      segs, nseg, FUSED ? 2 * s : s, launched, [&](int, int g0, int g1) {
         if (FUSED)
           fused_segment_batched<T><<<blocks, threads, 0, st>>>(
               cols, vals, dinv, q, y, g0, g1, s, r, k, nb);
@@ -879,17 +875,6 @@ void launch_on_chip(const int32_t* cols, const T* vals, const T* dinv,
   const size_t ring = (size_t)depth * SINGLE_THREADS * sizeof(T);
   segment_single<T, FUSED, KN><<<blocks, SINGLE_THREADS, ring, st>>>(
       cols, vals, dinv, q, y, g0, g1, s, r, KN);
-}
-
-// The lane group of a table of K entries a row and R lanes (the host twin:
-// segments.lane_group): 1 (a thread a lane) where K <= KP, else the
-// largest power of two G <= GROUP_MAX with G <= K and R x G <=
-// GROUP_THREADS, or 1 where there is none.
-int lane_group(int k, int r) {
-  if (k <= KP) return 1;
-  int g = GROUP_MAX;
-  while (g > 1 && (g > k || (int64_t)r * g > GROUP_THREADS)) g /= 2;
-  return g;
 }
 
 // B1 / B5 on the lane-group path, G threads a lane and NP entries of a
@@ -925,28 +910,41 @@ void launch_group(const int32_t* cols, const T* vals, const T* dinv,
 }
 
 // B1 / B5: SINGLE_THREADS a block, one per lane, so the 1M plan's 32,768
-// lanes make 256 blocks over the 132 SMs.  A table of K > KP entries a row
-// whose lane group (lane_group) is G > 1 takes the lane-group path, G
-// threads a lane; else a segment of at least ON_CHIP_MIN_STEPS steps of a
-// table of K <= KP entries a row, whose entries count below 2^31, takes
-// the on-chip path; the rest the plain one.  *on_chip counts the on-chip
-// launches, *grouped the lane-group ones.
+// lanes make 256 blocks over the 132 SMs.  paths holds one code a segment,
+// picked on the host (segments.single_paths): 0 the plain path, 1 the
+// on-chip path, G in {2, 4, ..., GROUP_MAX} the lane-group path with G
+// threads a lane.  A code whose kernel cannot take the table -- on chip
+// past KP entries a row or at 2^31 entries, a group not a power of two in
+// [2, GROUP_MAX] or at 2^31 positions -- refuses the call before any
+// launch.
 template <typename T, bool FUSED>
 int launch_single(const int32_t* cols, const T* vals, const T* dinv,
                   const T* q, T* y, int s, int r, int k, const int32_t* segs,
-                  int nseg, cudaStream_t st, int* on_chip, int* grouped,
+                  int nseg, const int32_t* paths, cudaStream_t st,
                   int* launched) {
   const unsigned blocks =
       (unsigned)((r + SINGLE_THREADS - 1) / SINGLE_THREADS);
-  const bool fits =
+  const bool on_chip_fits =
       k >= 1 && k <= KP && (int64_t)(FUSED ? 2 * s : s) * r * k < (1ll << 31);
   // (every packed table's positions fit int32: its hole is S*R itself)
-  const int group = (int64_t)s * r < (1ll << 31) ? lane_group(k, r) : 1;
+  const bool group_fits = (int64_t)s * r < (1ll << 31);
+  for (int i = 0; i < nseg; ++i) {
+    const int p = paths[i];
+    const bool ok = p == 0 || (p == 1 && on_chip_fits) ||
+                    (p >= 2 && p <= GROUP_MAX && (p & (p - 1)) == 0 &&
+                     group_fits);
+    if (!ok) return (int)cudaErrorInvalidValue;
+  }
   return for_each_segment(
-      segs, nseg, FUSED ? 2 * s : s, launched, [&](int g0, int g1) {
-        if (group > 1) {
-          ++*grouped;
-          switch (group) {
+      segs, nseg, FUSED ? 2 * s : s, launched, [&](int i, int g0, int g1) {
+        const int p = paths[i];
+        if (p == 0) {
+          segment_single<T, FUSED, 0><<<blocks, SINGLE_THREADS, 0, st>>>(
+              cols, vals, dinv, q, y, g0, g1, s, r, k);
+          return;
+        }
+        if (p > 1) {
+          switch (p) {
             case 2: return launch_group<T, FUSED, 2>(cols, vals, dinv, q, y, g0, g1, s, r, k, st);
             case 4: return launch_group<T, FUSED, 4>(cols, vals, dinv, q, y, g0, g1, s, r, k, st);
             case 8: return launch_group<T, FUSED, 8>(cols, vals, dinv, q, y, g0, g1, s, r, k, st);
@@ -954,12 +952,6 @@ int launch_single(const int32_t* cols, const T* vals, const T* dinv,
             default: return launch_group<T, FUSED, GROUP_MAX>(cols, vals, dinv, q, y, g0, g1, s, r, k, st);
           }
         }
-        if (!fits || g1 - g0 < ON_CHIP_MIN_STEPS) {
-          segment_single<T, FUSED, 0><<<blocks, SINGLE_THREADS, 0, st>>>(
-              cols, vals, dinv, q, y, g0, g1, s, r, k);
-          return;
-        }
-        ++*on_chip;
         switch (k) {
           case 1: return launch_on_chip<T, FUSED, 1>(cols, vals, dinv, q, y, g0, g1, s, r, blocks, st);
           case 2: return launch_on_chip<T, FUSED, 2>(cols, vals, dinv, q, y, g0, g1, s, r, blocks, st);
@@ -978,33 +970,32 @@ int launch_single(const int32_t* cols, const T* vals, const T* dinv,
 // Every entry point: y (S*R[, B]) may hold any values on entry and holds
 // the result on return (stream-ordered); segs is a host array of the nseg
 // ascending segment starts (segs[0] == 0), one launch per segment;
-// *launched is incremented once per kernel launch issued, and for B1 / B5
-// *on_chip once per launch on the on-chip path and *grouped once per
-// launch on the lane-group path; the return value is the first CUDA
-// error.
+// for B1 / B5 paths is a host array of the nseg path codes (launch_single);
+// *launched is incremented once per kernel launch issued; the return value
+// is the first CUDA error.
 
 extern "C" int hbmc_trisolve_fused_f64(const void* cols, const void* vals,
                                        const void* dinv, const void* q,
                                        void* y, int s, int r, int k,
                                        const void* segs, int nseg,
-                                       void* stream, int* on_chip,
-                                       int* grouped, int* launched) {
+                                       const void* paths, void* stream,
+                                       int* launched) {
   return launch_single<double, true>(
       (const int32_t*)cols, (const double*)vals, (const double*)dinv,
       (const double*)q, (double*)y, s, r, k, (const int32_t*)segs, nseg,
-      (cudaStream_t)stream, on_chip, grouped, launched);
+      (const int32_t*)paths, (cudaStream_t)stream, launched);
 }
 
 extern "C" int hbmc_trisolve_fused_f32(const void* cols, const void* vals,
                                        const void* dinv, const void* q,
                                        void* y, int s, int r, int k,
                                        const void* segs, int nseg,
-                                       void* stream, int* on_chip,
-                                       int* grouped, int* launched) {
+                                       const void* paths, void* stream,
+                                       int* launched) {
   return launch_single<float, true>(
       (const int32_t*)cols, (const float*)vals, (const float*)dinv,
       (const float*)q, (float*)y, s, r, k, (const int32_t*)segs, nseg,
-      (cudaStream_t)stream, on_chip, grouped, launched);
+      (const int32_t*)paths, (cudaStream_t)stream, launched);
 }
 
 extern "C" int hbmc_trisolve_fused_batched_f64(
@@ -1028,25 +1019,27 @@ extern "C" int hbmc_trisolve_fused_batched_f32(
 }
 
 extern "C" int hbmc_trisolve_f64(const void* cols, const void* vals,
-                                 const void* dinv, const void* q, void* y,
-                                 int s, int r, int k, const void* segs,
-                                 int nseg, void* stream, int* on_chip,
-                                 int* grouped, int* launched) {
+                                 const void* dinv, const void* q,
+                                 void* y, int s, int r, int k,
+                                 const void* segs, int nseg,
+                                 const void* paths, void* stream,
+                                 int* launched) {
   return launch_single<double, false>(
       (const int32_t*)cols, (const double*)vals, (const double*)dinv,
       (const double*)q, (double*)y, s, r, k, (const int32_t*)segs, nseg,
-      (cudaStream_t)stream, on_chip, grouped, launched);
+      (const int32_t*)paths, (cudaStream_t)stream, launched);
 }
 
 extern "C" int hbmc_trisolve_f32(const void* cols, const void* vals,
-                                 const void* dinv, const void* q, void* y,
-                                 int s, int r, int k, const void* segs,
-                                 int nseg, void* stream, int* on_chip,
-                                 int* grouped, int* launched) {
+                                 const void* dinv, const void* q,
+                                 void* y, int s, int r, int k,
+                                 const void* segs, int nseg,
+                                 const void* paths, void* stream,
+                                 int* launched) {
   return launch_single<float, false>(
       (const int32_t*)cols, (const float*)vals, (const float*)dinv,
       (const float*)q, (float*)y, s, r, k, (const int32_t*)segs, nseg,
-      (cudaStream_t)stream, on_chip, grouped, launched);
+      (const int32_t*)paths, (cudaStream_t)stream, launched);
 }
 
 extern "C" int hbmc_trisolve_batched_f64(const void* cols, const void* vals,

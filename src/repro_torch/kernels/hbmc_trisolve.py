@@ -13,78 +13,43 @@ For a CUDA tensor each wrapper launches its hand-written kernel in
 ``csrc/hbmc_trisolve.cu`` (see the source for the design and bound) once
 per barrier-free segment of its table (``segments.barrier_segments``), the
 kernel boundary being the only barrier; ``segments=np.arange(G)`` gives one
-launch per step, the reference's round barrier.  The single-RHS kernels
-take, for a segment of at least ``segments.ON_CHIP_MIN_STEPS`` steps of a
-table of at most ``segments.ON_CHIP_MAX_K`` entries a row, the on-chip
-path: a thread serves the reads of what it wrote in the same launch from
-registers and shared memory and loads everything else ahead
-(``segments.forwarded_reads`` marks the reads it serves).  A table of
-more entries a row whose lane group (``segments.lane_group``) is G > 1
-takes the lane-group path: G threads of a warp a lane, the row's entries
-gathered and multiplied side by side, summed in k order by the group's
-first thread.  Other segments take the plain path, which loads the next
-step's table entries ahead of the current step's gathers.  The batched
-ones run the plain per-step loop.  For a CPU tensor each wrapper runs the
-plain PyTorch version in ``ref``, whose result is the step-major one, and
-ignores ``segments``.
+launch per step, the reference's round barrier.  The single-RHS wrappers
+pass each launch's path, which ``segments.single_paths`` picks from the
+table's shape and the segment's length: the on-chip path, where a thread
+serves the reads of what it wrote in the same launch from registers and
+shared memory and loads everything else ahead (``segments.forwarded_reads``
+marks the reads it serves); the lane-group path for a table of long rows
+on few lanes, G threads of a warp a lane, the row's entries gathered and
+multiplied side by side and summed in k order by the group's first thread;
+or the plain path, which loads the next step's table entries ahead of the
+current step's gathers.  The batched ones run the plain per-step loop.  For
+a CPU tensor each wrapper runs the plain PyTorch version in ``ref``, whose
+result is the step-major one, and ignores ``segments``.
 
-``launches`` / ``batched_launches`` count the wrapper calls that launched
-the fused single-RHS / batched CUDA kernel, ``sweep_launches`` /
-``sweep_batched_launches`` those of the single sweep.  The ``*_cuda_``
-counters beside them (``cuda_launches``, ``batched_cuda_launches``,
-``sweep_cuda_launches``, ``sweep_batched_cuda_launches``) count the CUDA
-launches those calls issued, as the C entry points report them: one per
-segment.  ``on_chip_launches`` / ``plain_launches`` / ``wide_launches`` /
-``grouped_launches`` split B1's CUDA launches by path,
-``sweep_on_chip_launches`` / ``sweep_plain_launches`` /
-``sweep_wide_launches`` / ``sweep_grouped_launches`` B5's: ``wide`` is the
-plain path of a table of more than ``segments.ON_CHIP_MAX_K`` entries a
-row, whose entries past it a step loads in the step, and ``grouped`` the
-lane-group path.
+Each wrapper counts, in ``spans``' counters, its calls that launched, the
+CUDA launches they issued (one per segment, as the C entry points report
+them) and, for B1 and B5, those launches by path; ``kernels`` reads them
+(``launch_counts``, ``cuda_launch_counts``, ``forwarding_counts``).
 
 ``hbmc_trisolve_shard_step`` and ``hbmc_trisolve_shard_step_batched`` run
 one fused step of one rank's lane block of a fused table sharded over a
 mesh axis (the per-device body of the reference's
 ``core.trisolve._dist_substitute_fused``, which ``core.trisolve`` follows
-with an all-gather of the step's slice): one launch per call, counted in
-``shard_launches`` / ``shard_batched_launches`` and their ``*_cuda_``
-counters.
+with an all-gather of the step's slice): one launch per call.
 """
 from __future__ import annotations
-
-import ctypes
 
 import numpy as np
 import torch
 
+from ..spans import count
 from . import _build
 from ._trace import kernel_node
 from .config import runs_plain
 from .ref import (hbmc_trisolve_batched_ref, hbmc_trisolve_fused_batched_ref,
                   hbmc_trisolve_fused_ref, hbmc_trisolve_ref,
                   hbmc_trisolve_shard_step_ref)
-from .segments import ON_CHIP_MAX_K, table_segments
-
-launches = 0
-batched_launches = 0
-sweep_launches = 0
-sweep_batched_launches = 0
-cuda_launches = 0
-batched_cuda_launches = 0
-sweep_cuda_launches = 0
-sweep_batched_cuda_launches = 0
-shard_launches = 0
-shard_batched_launches = 0
-shard_cuda_launches = 0
-shard_batched_cuda_launches = 0
-on_chip_launches = 0
-plain_launches = 0
-wide_launches = 0
-grouped_launches = 0
-sweep_on_chip_launches = 0
-sweep_plain_launches = 0
-sweep_wide_launches = 0
-sweep_grouped_launches = 0
+from .segments import ON_CHIP, PLAIN, single_paths, table_segments
 
 _FLOATS = (torch.float64, torch.float32)
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
@@ -111,30 +76,45 @@ def _check(cols, vals, dinv, q) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _run(entry: str, cols, vals, dinv, q, segments,
-         fused: bool) -> tuple[torch.Tensor, int, int, int]:
-    """Check the operands and ``segments`` (``_segments``) and launch
-    ``entry`` once per segment into a new (S*R[, B]) buffer, which the
-    kernels need no zeros in; returns it, the number of CUDA launches and,
-    for the single-RHS kernels (q of two dims), how many of those took the
-    on-chip path and how many the lane-group path (0 and 0 for the batched
-    ones)."""
-    _check(cols, vals, dinv, q)
-    seg = _segments(segments, cols, fused)
+def _run(entry: str, cols, vals, dinv, q, seg: np.ndarray,
+         paths: np.ndarray | None = None) -> tuple[torch.Tensor, int]:
+    """Launch ``entry`` once per segment of ``seg`` (checked operands) into
+    a new (S*R[, B]) buffer, which the kernels need no zeros in, on the
+    path of each segment's code in ``paths`` (the single-RHS kernels);
+    returns it and the number of CUDA launches."""
     s_, r_, k_ = q.shape[0], q.shape[1], cols.shape[2]
     shape = (s_ * r_,) + tuple(q.shape[2:])
     y = torch.empty(shape, dtype=vals.dtype, device=q.device)
     if not y.numel():
-        return y, 0, 0, 0
+        return y, 0
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    on_chip, grouped = ctypes.c_int(0), ctypes.c_int(0)
-    single = () if q.dim() == 3 else (ctypes.byref(on_chip),
-                                      ctypes.byref(grouped))
+    single = () if paths is None else (paths.ctypes.data,)
     n = _build.call(f"{entry}_{_SUFFIX[vals.dtype]}", cols.data_ptr(),
                     vals.data_ptr(), dinv.data_ptr(), q.data_ptr(),
                     y.data_ptr(), s_, r_, k_, *q.shape[2:], seg.ctypes.data,
-                    int(seg.size), stream, *single)
-    return y, n, on_chip.value, grouped.value
+                    int(seg.size), *single, stream)
+    return y, n
+
+
+def _launch(name: str, cols, vals, dinv, q, segments,
+            fused: bool) -> torch.Tensor:
+    """Check the operands and ``segments``, launch ``name``'s kernel once
+    per segment (each B1 / B5 launch on its ``single_paths`` path) and
+    count the call, its CUDA launches and their paths."""
+    _check(cols, vals, dinv, q)
+    seg = _segments(segments, cols, fused)
+    paths = None
+    if q.dim() == 2:
+        paths = single_paths(cols.shape[2], q.shape[1], q.shape[0], seg,
+                             fused)
+    y, n = _run(name, cols, vals, dinv, q, seg, paths)
+    count(f"kernels.calls.{name}")
+    count(f"kernels.cuda.{name}", n)
+    if paths is not None and n:
+        count(f"kernels.path.{name}.plain", int((paths == PLAIN).sum()))
+        count(f"kernels.path.{name}.on_chip", int((paths == ON_CHIP).sum()))
+        count(f"kernels.path.{name}.grouped", int((paths > ON_CHIP).sum()))
+    return y
 
 
 def _segments(segments, cols: torch.Tensor, fused: bool) -> np.ndarray:
@@ -180,26 +160,14 @@ def hbmc_trisolve_fused(cols: torch.Tensor, vals: torch.Tensor,
     Returns:
       z: (S*R,) solution in round-major layout (holes stay 0).
     """
-    global launches, cuda_launches, on_chip_launches, plain_launches
-    global wide_launches, grouped_launches
     s2, r_, _ = cols.shape
     if q.shape != (s2 // 2, r_):
         raise ValueError(f"q shape {tuple(q.shape)} != rounds shape "
                          f"{(s2 // 2, r_)}")
     if runs_plain(q):
         return hbmc_trisolve_fused_ref(cols, vals, dinv, q)
-    y, n, on_chip, grouped = _run("hbmc_trisolve_fused", cols, vals, dinv,
-                                  q, segments, True)
-    launches += 1
-    cuda_launches += n
-    on_chip_launches += on_chip
-    grouped_launches += grouped
-    rest = n - on_chip - grouped
-    if cols.shape[2] > ON_CHIP_MAX_K:
-        wide_launches += rest
-    else:
-        plain_launches += rest
-    return y
+    return _launch("hbmc_trisolve_fused", cols, vals, dinv, q, segments,
+                   True)
 
 
 @kernel_node("hbmc_trisolve_fused_batched")
@@ -213,18 +181,14 @@ def hbmc_trisolve_fused_batched(cols: torch.Tensor, vals: torch.Tensor,
     (on the card and on the CPU alike).  Any B >= 1.  ``segments`` as for
     ``hbmc_trisolve_fused``.
     """
-    global batched_launches, batched_cuda_launches
     s2, r_, _ = cols.shape
     if q.dim() != 3 or q.shape[:2] != (s2 // 2, r_):
         raise ValueError(f"q shape {tuple(q.shape)} != {(s2 // 2, r_)} + "
                          "(B,)")
     if runs_plain(q):
         return hbmc_trisolve_fused_batched_ref(cols, vals, dinv, q)
-    y, n, _, _ = _run("hbmc_trisolve_fused_batched", cols, vals, dinv, q,
-                      segments, True)
-    batched_launches += 1
-    batched_cuda_launches += n
-    return y
+    return _launch("hbmc_trisolve_fused_batched", cols, vals, dinv, q,
+                   segments, True)
 
 
 @kernel_node("hbmc_trisolve")
@@ -246,25 +210,12 @@ def hbmc_trisolve(cols: torch.Tensor, vals: torch.Tensor, dinv: torch.Tensor,
     Returns:
       y: (S*R,) solution in round-major layout.
     """
-    global sweep_launches, sweep_cuda_launches, sweep_on_chip_launches
-    global sweep_plain_launches, sweep_wide_launches, sweep_grouped_launches
     if q.shape != cols.shape[:2]:
         raise ValueError(f"q shape {tuple(q.shape)} != rounds shape "
                          f"{tuple(cols.shape[:2])}")
     if runs_plain(q):
         return hbmc_trisolve_ref(cols, vals, dinv, q)
-    y, n, on_chip, grouped = _run("hbmc_trisolve", cols, vals, dinv, q,
-                                  segments, False)
-    sweep_launches += 1
-    sweep_cuda_launches += n
-    sweep_on_chip_launches += on_chip
-    sweep_grouped_launches += grouped
-    rest = n - on_chip - grouped
-    if cols.shape[2] > ON_CHIP_MAX_K:
-        sweep_wide_launches += rest
-    else:
-        sweep_plain_launches += rest
-    return y
+    return _launch("hbmc_trisolve", cols, vals, dinv, q, segments, False)
 
 
 @kernel_node("hbmc_trisolve_batched")
@@ -278,17 +229,13 @@ def hbmc_trisolve_batched(cols: torch.Tensor, vals: torch.Tensor,
     the card and on the CPU alike).  Any B >= 1.  ``segments`` as for
     ``hbmc_trisolve``.
     """
-    global sweep_batched_launches, sweep_batched_cuda_launches
     if q.dim() != 3 or q.shape[:2] != cols.shape[:2]:
         raise ValueError(f"q shape {tuple(q.shape)} != "
                          f"{tuple(cols.shape[:2])} + (B,)")
     if runs_plain(q):
         return hbmc_trisolve_batched_ref(cols, vals, dinv, q)
-    y, n, _, _ = _run("hbmc_trisolve_batched", cols, vals, dinv, q,
-                      segments, False)
-    sweep_batched_launches += 1
-    sweep_batched_cuda_launches += n
-    return y
+    return _launch("hbmc_trisolve_batched", cols, vals, dinv, q, segments,
+                   False)
 
 
 @kernel_node("hbmc_trisolve_shard_step")
@@ -316,15 +263,12 @@ def hbmc_trisolve_shard_step(cols: torch.Tensor, vals: torch.Tensor,
     r_full`` and ``lane0 == 0`` the 2S steps in order are bitwise one fused
     apply.
     """
-    global shard_launches, shard_cuda_launches
     if q.dim() != 2:
         raise ValueError(f"q must be (S, R), got {tuple(q.shape)}")
     if runs_plain(q):
         _check_shard(cols, vals, dinv, q, y, g, lane0)
         return hbmc_trisolve_shard_step_ref(cols, vals, dinv, q, y, g, lane0)
-    shard_cuda_launches += _run_shard("hbmc_trisolve_shard_step", cols, vals,
-                                      dinv, q, y, g, lane0)
-    shard_launches += 1
+    _run_shard("hbmc_trisolve_shard_step", cols, vals, dinv, q, y, g, lane0)
     return y
 
 
@@ -335,15 +279,13 @@ def hbmc_trisolve_shard_step_batched(cols: torch.Tensor, vals: torch.Tensor,
                                      lane0: int) -> torch.Tensor:
     """Multi-RHS shard step: q (S, r_full, B), y (S*r_full, B), row-major.
     Column j is bitwise ``hbmc_trisolve_shard_step`` on column j."""
-    global shard_batched_launches, shard_batched_cuda_launches
     if q.dim() != 3:
         raise ValueError(f"q must be (S, R, B), got {tuple(q.shape)}")
     if runs_plain(q):
         _check_shard(cols, vals, dinv, q, y, g, lane0)
         return hbmc_trisolve_shard_step_ref(cols, vals, dinv, q, y, g, lane0)
-    shard_batched_cuda_launches += _run_shard(
-        "hbmc_trisolve_shard_step_batched", cols, vals, dinv, q, y, g, lane0)
-    shard_batched_launches += 1
+    _run_shard("hbmc_trisolve_shard_step_batched", cols, vals, dinv, q, y, g,
+               lane0)
     return y
 
 
@@ -369,12 +311,15 @@ def _check_shard(cols, vals, dinv, q, y, g: int, lane0: int) -> None:
 
 
 def _run_shard(entry: str, cols, vals, dinv, q, y, g: int,
-               lane0: int) -> int:
-    """Check and launch a shard step; returns the CUDA launches (one)."""
+               lane0: int) -> None:
+    """Check and launch a shard step, and count the call and its CUDA
+    launch."""
     _check_shard(cols, vals, dinv, q, y, g, lane0)
     s2, r_loc, k_ = cols.shape
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    return _build.call(f"{entry}_{_SUFFIX[vals.dtype]}", cols.data_ptr(),
-                       vals.data_ptr(), dinv.data_ptr(), q.data_ptr(),
-                       y.data_ptr(), int(g), s2 // 2, r_loc, k_,
-                       *q.shape[2:], q.shape[1], int(lane0), stream)
+    n = _build.call(f"{entry}_{_SUFFIX[vals.dtype]}", cols.data_ptr(),
+                    vals.data_ptr(), dinv.data_ptr(), q.data_ptr(),
+                    y.data_ptr(), int(g), s2 // 2, r_loc, k_, *q.shape[2:],
+                    q.shape[1], int(lane0), stream)
+    count(f"kernels.cuda.{entry}", n)
+    count(f"kernels.calls.{entry}")

@@ -41,13 +41,13 @@ over the table's entries and its (step, slice) pairs, with a loop over
 steps only: 0.18-0.25 s for the (64, 32768, 4) table of a 1M-unknown
 plan on one host core (``chip_smoke.py`` phase 3).
 
-The same contract lets the single-RHS kernels (B1, B5) serve on chip every
-read of a value the same launch wrote: by the tie rule such a read is of
-the thread's own lane, and its latest writer runs earlier in the thread's
-own loop.  ``forwarded_reads`` marks those reads as the kernels decide
-them; it is the host twin of their rule, for the tests and
-``chip_smoke.py``, never the solve path.  ``lane_group`` likewise twins
-how many threads of a warp they give a lane of a wide-row table.
+``single_paths`` picks the path of each launch of the single-RHS kernels
+(B1, B5), and the wrappers pass its codes to them: the plain path, the
+on-chip path or the lane-group path with ``lane_group(K, R)`` threads a
+lane.  On the on-chip path a launch serves on chip every read of a value
+it wrote itself: by the tie rule such a read is of the thread's own lane,
+and its latest writer runs earlier in the thread's own loop.
+``forwarded_reads`` marks those reads, for the tests and ``chip_smoke.py``.
 
 ``table_segments`` records the shape and the segment count of each table
 it analyses (``analysed()``; cleared by ``kernels.reset_launch_counts``),
@@ -63,18 +63,22 @@ import numpy as np
 from ..spans import span
 
 
-#: The single-RHS kernels' on-chip path (``csrc/hbmc_trisolve.cu``): a
-#: segment of at least ON_CHIP_MIN_STEPS steps of a table of at most
-#: ON_CHIP_MAX_K entries a row (``KP`` there) whose entries count below
-#: 2^31 takes it, and a thread's ring keeps its last RING_STEPS outputs.
+#: The single-RHS kernels' paths (``single_paths``).  On chip: a segment of
+#: at least ON_CHIP_MIN_STEPS steps of a table of at most ON_CHIP_MAX_K
+#: entries a row (``KP`` in ``csrc/hbmc_trisolve.cu``) whose entries count
+#: below 2^31; a thread's ring keeps its last RING_STEPS outputs.  Lane
+#: groups: a table of more than ON_CHIP_MAX_K entries a row runs G threads
+#: of one warp a lane, G at most GROUP_MAX, with R x G at most GROUP_THREADS
+#: (about half the H100's resident threads).
 ON_CHIP_MIN_STEPS = 3
 ON_CHIP_MAX_K = 8
 RING_STEPS = 32
-#: Their lane-group path: a table of more than ON_CHIP_MAX_K entries a row
-#: runs G threads of one warp a lane, G at most GROUP_MAX, with R x G at
-#: most GROUP_THREADS (about half the H100's resident threads).
 GROUP_MAX = 32
 GROUP_THREADS = 132 * 1024
+
+#: ``single_paths``' codes of the plain and the on-chip path; a code G > 1
+#: is the lane-group path with G threads a lane
+PLAIN, ON_CHIP = 0, 1
 
 
 class Analysed(NamedTuple):
@@ -214,16 +218,39 @@ def lane_group(k: int, r: int) -> int:
     """Threads a lane that the single-RHS kernels give a table of ``k``
     entries a row and ``r`` lanes: 1 where ``k <= ON_CHIP_MAX_K``, else the
     largest power of two G <= ``GROUP_MAX`` with G <= k and r x G <=
-    ``GROUP_THREADS``, or 1 where there is none.  G > 1 is the lane-group
-    path (``kernels.forwarding_counts()``'s ``grouped``).  The host twin of
-    the kernels' ``lane_group``, for the tests and ``chip_smoke.py``, never
-    the solve path."""
+    ``GROUP_THREADS``, or 1 where there is none."""
     if k <= ON_CHIP_MAX_K:
         return 1
     g = GROUP_MAX
     while g > 1 and (g > k or r * g > GROUP_THREADS):
         g //= 2
     return g
+
+
+def single_paths(k: int, r: int, s: int, starts, fused: bool) -> np.ndarray:
+    """The path of each launch of B1 / B5 on a table of ``k`` entries a
+    row, ``r`` lanes and ``s`` slices (2S steps where ``fused``, else S),
+    cut at the segment starts ``starts``.
+
+    Returns:
+      int32 (n_segments,): ``PLAIN`` (0), ``ON_CHIP`` (1), or G in {2, 4,
+      8, 16, 32}, the lane-group path with G threads a lane.  Every launch
+      takes the lane-group path where G = ``lane_group(k, r)`` > 1 and the
+      state's S x R positions count below 2^31; otherwise a segment of at
+      least ``ON_CHIP_MIN_STEPS`` steps of a table of 1 to
+      ``ON_CHIP_MAX_K`` entries a row, whose entries count below 2^31,
+      takes the on-chip path, and the rest the plain one.  The paths are
+      bitwise each other; the wrappers pass these codes to the kernels and
+      count their launches by them (``kernels.forwarding_counts``).
+    """
+    starts = np.asarray(starts, dtype=np.int64)
+    n_steps = 2 * s if fused else s
+    group = lane_group(k, r) if s * r < 2**31 else 1
+    if group > 1:
+        return np.full(starts.size, group, dtype=np.int32)
+    fits = 1 <= k <= ON_CHIP_MAX_K and n_steps * r * k < 2**31
+    lengths = np.diff(np.append(starts, n_steps))
+    return ((lengths >= ON_CHIP_MIN_STEPS) & fits).astype(np.int32)
 
 
 def forwarded_reads(cols: np.ndarray, segments, fused: bool) -> np.ndarray:
@@ -239,10 +266,9 @@ def forwarded_reads(cols: np.ndarray, segments, fused: bool) -> np.ndarray:
       bool (G, R, K): True where the gather of step g, lane l, entry k is
       live (``c`` wraps into ``[0, S*R)``, and for a forward step lies
       before slice g) and its launch serves it from registers or shared
-      memory instead of y: the table has at most ``ON_CHIP_MAX_K`` entries
-      a row and fewer than 2^31 in all, the segment has at least
-      ``ON_CHIP_MIN_STEPS`` steps, the position is lane l's own, and its
-      latest writer before g
+      memory instead of y: the launch takes the on-chip path
+      (``single_paths``), the position is lane l's own, and its latest
+      writer before g
       -- step x for slice x, or the fused table's backward step 2S-1-x if
       that is before g -- lies in the segment, at most ``RING_STEPS``
       steps back.  A backward step's read of its own right-hand side is not
@@ -250,15 +276,15 @@ def forwarded_reads(cols: np.ndarray, segments, fused: bool) -> np.ndarray:
     """
     cols = np.asarray(cols)
     n_steps, r_, k_ = cols.shape
-    if k_ > ON_CHIP_MAX_K or cols.size >= 2**31:
-        return np.zeros(cols.shape, dtype=bool)
     n_slices = n_steps // 2 if fused else n_steps
-    m = n_slices * r_
     starts = np.asarray(segments, dtype=np.int64)
-    bounds = np.append(starts, n_steps)
+    on_chip = single_paths(k_, r_, n_slices, starts, fused) == ON_CHIP
+    if not on_chip.any():
+        return np.zeros(cols.shape, dtype=bool)
+    m = n_slices * r_
     seg = np.searchsorted(starts, np.arange(n_steps), side="right") - 1
     g0 = starts[seg][:, None, None]
-    long_ = (bounds[seg + 1] - starts[seg] >= ON_CHIP_MIN_STEPS)[:, None, None]
+    on_chip = on_chip[seg][:, None, None]
     g = np.arange(n_steps, dtype=np.int64)[:, None, None]
     c = cols.astype(np.int64)
     c = np.where(c < 0, c + m, c)
@@ -270,4 +296,4 @@ def forwarded_reads(cols: np.ndarray, segments, fused: bool) -> np.ndarray:
     if fused:
         back = 2 * n_slices - 1 - x
         w = np.where(back < g, back, x)
-    return own & long_ & (w >= g0) & (g - w <= RING_STEPS)
+    return own & on_chip & (w >= g0) & (g - w <= RING_STEPS)

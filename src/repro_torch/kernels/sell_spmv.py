@@ -13,12 +13,9 @@ shape; it is plain Python, so the CPU tests reach it.
 the per-device SpMV of a mesh: a rank's slice shard against the replicated
 x, through the same two kernels.
 
-``launches`` / ``batched_launches`` count the wrapper calls that launched
-the single-RHS / batched CUDA kernel, ``cuda_launches`` /
-``batched_cuda_launches`` the CUDA launches they issued (one per call), as
-the C entry points report them; ``block_launches`` /
-``block_cuda_launches`` count the same for ``sell_spmv_block``'s calls
-(which count in the kernel's own counters too).
+Each wrapper counts, in ``spans``' counters, its calls that launched and
+the CUDA launches they issued (one per call, as the C entry points report
+them); ``sell_spmv_block``'s calls count in the kernel's own counters too.
 """
 from __future__ import annotations
 
@@ -26,17 +23,11 @@ import dataclasses
 
 import torch
 
+from ..spans import count, counts
 from . import _build
 from ._trace import kernel_node
 from .config import runs_plain
 from .ref import sell_spmv_batched_ref, sell_spmv_ref
-
-launches = 0
-batched_launches = 0
-cuda_launches = 0
-batched_cuda_launches = 0
-block_launches = 0
-block_cuda_launches = 0
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 
@@ -109,19 +100,22 @@ def _check(vals, cols, x, x_dim: int) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _run(entry: str, vals, cols, x, *shape) -> tuple[torch.Tensor, int]:
+def _run(entry: str, vals, cols, x, *shape) -> torch.Tensor:
     """Launch ``entry`` (with the launch ``shape`` arguments that follow B,
-    if any); returns y and the number of CUDA launches."""
+    if any), count the call and its CUDA launches, and return y."""
     n_slices, k_, w_ = vals.shape
     y = torch.empty((n_slices * w_,) + tuple(x.shape[1:]), dtype=vals.dtype,
                     device=x.device)
-    if not y.numel():
-        return y, 0
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    n = _build.call(f"{entry}_{_SUFFIX[vals.dtype]}", vals.data_ptr(),
-                    cols.data_ptr(), x.data_ptr(), y.data_ptr(), n_slices,
-                    k_, w_, x.shape[0], *x.shape[1:], *shape, stream)
-    return y, n
+    n = 0
+    if y.numel():
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        n = _build.call(f"{entry}_{_SUFFIX[vals.dtype]}", vals.data_ptr(),
+                        cols.data_ptr(), x.data_ptr(), y.data_ptr(),
+                        n_slices, k_, w_, x.shape[0], *x.shape[1:], *shape,
+                        stream)
+    count(f"kernels.calls.{entry}")
+    count(f"kernels.cuda.{entry}", n)
+    return y
 
 
 @kernel_node("sell_spmv")
@@ -138,14 +132,10 @@ def sell_spmv(vals: torch.Tensor, cols: torch.Tensor,
     Returns:
       y: (n_slices * w,) in slice-row-major order.
     """
-    global launches, cuda_launches
     if runs_plain(x):
         return sell_spmv_ref(vals, cols, x)
     _check(vals, cols, x, 1)
-    y, n = _run("sell_spmv", vals, cols, x)
-    launches += 1
-    cuda_launches += n
-    return y
+    return _run("sell_spmv", vals, cols, x)
 
 
 @kernel_node("sell_spmv_batched")
@@ -160,18 +150,14 @@ def sell_spmv_batched(vals: torch.Tensor, cols: torch.Tensor,
     Returns:
       y: (n_slices * w, B) in slice-row-major order.
     """
-    global batched_launches, batched_cuda_launches
     if runs_plain(x):
         return sell_spmv_batched_ref(vals, cols, x)
     _check(vals, cols, x, 2)
     n_slices, k_, w_ = vals.shape
     launch = batched_launch(n_slices, k_, w_, x.shape[1], x.dtype,
                             x.data_ptr() % 16)
-    y, n = _run("sell_spmv_batched", vals, cols, x, launch.cols_per_thread,
+    return _run("sell_spmv_batched", vals, cols, x, launch.cols_per_thread,
                 launch.k_unrolled, launch.blocks, launch.threads)
-    batched_launches += 1
-    batched_cuda_launches += n
-    return y
 
 
 @kernel_node("sell_spmv_block")
@@ -187,13 +173,18 @@ def sell_spmv_block(vals: torch.Tensor, cols: torch.Tensor,
     ``sell_spmv`` (B2) for a 1-D ``x`` and ``sell_spmv_batched`` (B4) for a
     2-D one: their kernels on the card, their plain versions on the CPU.
     """
-    global block_launches, block_cuda_launches
     if x.dim() not in (1, 2):
         raise ValueError(f"x must be (n,) or (n, B), got {tuple(x.shape)}")
-    before = cuda_launches + batched_cuda_launches
+    before = _spmv_launches()
     y = sell_spmv(vals, cols, x) if x.dim() == 1 else \
         sell_spmv_batched(vals, cols, x)
     if not runs_plain(x):
-        block_launches += 1
-        block_cuda_launches += cuda_launches + batched_cuda_launches - before
+        count("kernels.calls.sell_spmv_block")
+        count("kernels.cuda.sell_spmv_block", _spmv_launches() - before)
     return y
+
+
+def _spmv_launches() -> int:
+    """The CUDA launches B2 and B4 have counted."""
+    got = counts("kernels.cuda.")
+    return got.get("sell_spmv", 0) + got.get("sell_spmv_batched", 0)

@@ -1,5 +1,5 @@
 """Host-clock spans at the places where the port's solve and set-up work
-happens.
+happens, and the program's event counters.
 
 ``with span(name) as rec:`` reads ``time.perf_counter()`` on entry and on
 exit, and on exit appends ``Record(name, start, end, nbytes)`` to a ring of
@@ -22,6 +22,20 @@ The names in use, and what reads them:
 The clock is the host's, the same as a caller's ``time.perf_counter()``;
 spans never enter ``torch.profiler`` (no ``record_function``, no NVTX), so a
 profiled run's device records hold none of them.
+
+The counters are one ``collections.Counter`` keyed ``"<layer>.<name>"``:
+``count(key, n)`` adds, ``counts(prefix)`` reads the keys under a prefix,
+``reset_counts(prefix)`` zeroes them, and ``snapshot()`` / ``add(delta,
+times)`` let a CUDA graph take a capture's counts back out and add them once
+per replay (``core/device_loop.py``).  The keys in use, and the views
+that read them (each owner's reset zeroes its first part):
+
+    kernels.calls.<wrapper>          kernels.launch_counts
+    kernels.cuda.<wrapper>           kernels.cuda_launch_counts
+    kernels.bytes.<wrapper>          kernels.operand_bytes
+    kernels.path.<wrapper>.<path>    kernels.forwarding_counts
+    mesh.gathers.<caller>            core.mesh.gather_counts
+    loop.<event>                     core.device_loop.loop_counts
 """
 from __future__ import annotations
 
@@ -79,3 +93,36 @@ def recent(name: str | None = None) -> list[Record]:
 
 def reset() -> None:
     _ring.clear()
+
+
+_counts: collections.Counter = collections.Counter()
+
+
+def count(key: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``key``."""
+    _counts[key] += n
+
+
+def counts(prefix: str) -> dict[str, int]:
+    """The counters whose keys start with ``prefix``, keyed by the rest of
+    their keys (a counter never counted is absent)."""
+    cut = len(prefix)
+    return {k[cut:]: v for k, v in _counts.items() if k.startswith(prefix)}
+
+
+def reset_counts(prefix: str) -> None:
+    """Zero the counters whose keys start with ``prefix``."""
+    for k in [k for k in _counts if k.startswith(prefix)]:
+        del _counts[k]
+
+
+def snapshot() -> dict[str, int]:
+    """Every counter's value."""
+    return dict(_counts)
+
+
+def add(delta: dict[str, int], times: int = 1) -> None:
+    """Add ``times`` x ``delta`` (a difference of two ``snapshot()``s) to
+    the counters."""
+    for k, v in delta.items():
+        _counts[k] += times * v

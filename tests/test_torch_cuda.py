@@ -491,7 +491,7 @@ def test_single_rhs_kernels_on_random_tables(cuda, k):
     gives 8 threads a lane at K = 11 and 32 above, and on two rounds R =
     4,225 gives 16 (8 at K = 11), 33,792 gives 4 and 67,584 gives 2; a row
     of K = 129 runs in 2 chunks at G = 32, and rows run in 1 to 17 chunks
-    at G = 2-16.  R = 67,585 takes the plain path (``wide``)."""
+    at G = 2-16.  R = 67,585 takes the plain path."""
     rng = np.random.default_rng(k)
     shapes = [(5, 300)]
     if k > segments.ON_CHIP_MAX_K:
@@ -516,7 +516,7 @@ def test_single_rhs_kernels_on_random_tables(cuda, k):
             assert n == launches and torch.equal(z, want), (r, dtype, fused,
                                                             cut)
             assert kernels.forwarding_counts()[name] == _paths(
-                seg if cut is None else cut, n_steps, k, r)
+                seg if cut is None else cut, n_steps, k, r, fused)
         assert (segments.lane_group(k, r) > 1) == (
             k > segments.ON_CHIP_MAX_K and r < 67_585)
 
@@ -645,21 +645,46 @@ def test_segment_arguments_are_checked(cuda):
                           q[..., 0].contiguous(), segments=bad)
 
 
-def _paths(starts, n_steps, k, r):
-    """The launches of a cut on each path of B1 / B5: ``on_chip`` for a
-    segment of at least ``ON_CHIP_MIN_STEPS`` steps of a table of at most
-    ``ON_CHIP_MAX_K`` entries a row, else ``plain``; every launch of a
-    wider table ``grouped`` where its lane group
-    (``segments.lane_group(k, r)``) is more than one thread, else
-    ``wide``."""
-    lengths = np.diff(np.append(starts, n_steps))
-    none = {"on_chip": 0, "plain": 0, "wide": 0, "grouped": 0}
-    if segments.lane_group(k, r) > 1:
-        return {**none, "grouped": int(lengths.size)}
-    if k > segments.ON_CHIP_MAX_K:
-        return {**none, "wide": int(lengths.size)}
-    on_chip = int((lengths >= segments.ON_CHIP_MIN_STEPS).sum())
-    return {**none, "on_chip": on_chip, "plain": int(lengths.size) - on_chip}
+def _paths(starts, n_steps, k, r, fused):
+    """The launches of a cut on each path of B1 / B5, by the codes
+    ``segments.single_paths`` gives its segments."""
+    codes = segments.single_paths(k, r, n_steps // 2 if fused else n_steps,
+                                  starts, fused)
+    return {"on_chip": int((codes == segments.ON_CHIP).sum()),
+            "plain": int((codes == segments.PLAIN).sum()),
+            "grouped": int((codes > segments.ON_CHIP).sum())}
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["B1", "B5"])
+@pytest.mark.parametrize("k, code", [(9, 1), (11, 3)],
+                         ids=["on-chip-at-k9", "group-of-3"])
+def test_single_rhs_entry_refuses_a_path_its_kernel_cannot_take(cuda, fused,
+                                                                k, code):
+    """A path code passed straight to the C entry point against its
+    kernel's preconditions: the on-chip path past KP (8) entries a row, a
+    lane group that is not a power of two.  The entry refuses it before
+    any launch (cudaErrorInvalidValue, 1); the codes ``single_paths``
+    gives launch the same table, bitwise the plain version."""
+    from repro_torch.kernels import _build
+    s, r = 3, 300
+    cols, t = _random_table(s, r, k, fused, np.random.default_rng(k), cuda)
+    q = torch.tensor(np.random.default_rng(1).normal(size=(s, r)),
+                     device=cuda)
+    y = torch.empty(s * r, dtype=torch.float64, device=cuda)
+    seg = barrier_segments(cols, fused)
+    entry = "hbmc_trisolve_fused_f64" if fused else "hbmc_trisolve_f64"
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+
+    def launch(paths):
+        return _build.call(entry, *(x.data_ptr() for x in (*t, q, y)), s, r,
+                           k, seg.ctypes.data, int(seg.size),
+                           paths.ctypes.data, stream)
+
+    with pytest.raises(RuntimeError, match=r"cudaError_t 1$"):
+        launch(np.full(seg.size, code, dtype=np.int32))
+    assert launch(segments.single_paths(k, r, s, seg, fused)) == seg.size
+    ref = hbmc_trisolve_fused_ref if fused else hbmc_trisolve_ref
+    assert torch.equal(y, ref(*t, q))
 
 
 def _fem2d_p1(n):
@@ -709,7 +734,7 @@ def test_q1_elasticity_plan_matches_the_plain_reference(cuda):
     kernels.reset_launch_counts()
     z = plan.extract_solution(plan._precond(plan.embed_rhs(b)))
     assert kernels.forwarding_counts()["hbmc_trisolve_fused"] == _paths(
-        t.segments, 2 * t.n_steps, t.cols.shape[2], t.lanes)
+        t.segments, 2 * t.n_steps, t.cols.shape[2], t.lanes, True)
     assert kernels.forwarding_counts()["hbmc_trisolve_fused"]["grouped"] > 0
     qb = torch.tensor(np.random.default_rng(9).normal(
         size=(t.n_steps, t.lanes, 3)), device=cuda)
@@ -788,7 +813,7 @@ def test_single_rhs_on_chip_path_bitwise_plain_and_per_step_cut(cuda, case,
         kernels.reset_launch_counts()
         step = fn(cols, vals, dinv, q, segments=np.arange(n_steps))
         assert kernels.forwarding_counts()[name] == _paths(
-            np.arange(n_steps), n_steps, cols.shape[2], cols.shape[1])
+            np.arange(n_steps), n_steps, cols.shape[2], cols.shape[1], fused)
         assert torch.equal(step, want), lab
         served = 0
         for cut in cuts:
@@ -796,7 +821,7 @@ def test_single_rhs_on_chip_path_bitwise_plain_and_per_step_cut(cuda, case,
             z = fn(cols, vals, dinv, q, segments=cut)
             assert torch.equal(z, want), (lab, cut.tolist())
             assert kernels.forwarding_counts()[name] == _paths(
-                cut, n_steps, cols.shape[2], cols.shape[1])
+                cut, n_steps, cols.shape[2], cols.shape[1], fused)
             served += segments.forwarded_reads(tab[0], cut, fused).sum()
         assert (served > 0) == (cols.shape[2] <= segments.ON_CHIP_MAX_K), lab
 
@@ -843,9 +868,9 @@ def test_cuda_launch_counts_per_kernel(cuda):
         **dict.fromkeys(kernels.launch_counts(), 1), "sell_spmv_batched": 2}
     assert kernels.forwarding_counts() == {
         "hbmc_trisolve_fused": _paths(t.segments, 2 * t.n_steps,
-                                      t.cols.shape[2], t.lanes),
+                                      t.cols.shape[2], t.lanes, True),
         "hbmc_trisolve": _paths(sw.segments, sw.cols.shape[0],
-                                sw.cols.shape[2], sw.cols.shape[1])}
+                                sw.cols.shape[2], sw.cols.shape[1], False)}
     assert kernels.forwarding_counts()["hbmc_trisolve_fused"]["on_chip"] > 0
     # the lane-group path: the audikw_1 cell's matrix family, K = 80, on
     # few lanes
@@ -863,9 +888,9 @@ def test_cuda_launch_counts_per_kernel(cuda):
                               device=cuda), segments=wide_idx.segments)
     assert segments.lane_group(wide.cols.shape[2], wide.lanes) == 32
     assert kernels.forwarding_counts() == {
-        "hbmc_trisolve_fused": {"on_chip": 0, "plain": 0, "wide": 0,
+        "hbmc_trisolve_fused": {"on_chip": 0, "plain": 0,
                                 "grouped": int(wide.segments.size)},
-        "hbmc_trisolve": {"on_chip": 0, "plain": 0, "wide": 0,
+        "hbmc_trisolve": {"on_chip": 0, "plain": 0,
                           "grouped": int(wide_idx.segments.size)}}
     assert segments.analysed() == [
         segments.Analysed(True, 2 * wide.n_steps, wide.lanes,

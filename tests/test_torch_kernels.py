@@ -200,10 +200,8 @@ def test_cpu_wrappers_count_no_launch():
                                "hbmc_trisolve_shard_step_batched": 0,
                                "sell_spmv_block": 0}
     assert kernels.forwarding_counts() == {
-        "hbmc_trisolve_fused": {"on_chip": 0, "plain": 0, "wide": 0,
-                                "grouped": 0},
-        "hbmc_trisolve": {"on_chip": 0, "plain": 0, "wide": 0,
-                          "grouped": 0}}
+        "hbmc_trisolve_fused": {"on_chip": 0, "plain": 0, "grouped": 0},
+        "hbmc_trisolve": {"on_chip": 0, "plain": 0, "grouped": 0}}
 
 
 def test_wrappers_raise_off_cpu_and_cuda():

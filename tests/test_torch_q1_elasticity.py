@@ -303,44 +303,53 @@ def test_analysed_records_the_cell_plans_table():
 
 @pytest.mark.parametrize("k", [6, 8, 9, 80])
 @pytest.mark.parametrize("fused", [True, False], ids=["B1", "B5"])
-def test_forwarding_counts_put_wide_tables_under_wide(monkeypatch, fused, k):
-    """The wrappers' accounting of the C entry's launches, with the entry
-    replaced: 5 launches, 2 of them on chip where K <= ON_CHIP_MAX_K (the
-    entry reports none on chip for a wider table), all 5 on the lane-group
-    path where ``segments.lane_group(K, R)`` > 1 (3 lanes; at 70,000 a
-    wide table's group is 1), and the rest under ``plain`` or ``wide`` by
-    K."""
-    s = 4
+def test_forwarding_counts_follow_the_paths_passed(monkeypatch, fused, k):
+    """The wrappers' accounting of B1 / B5's launches, with the launch
+    replaced: the wrapper passes ``segments.single_paths``' code for each
+    segment, and counts each launch under its code's path.  A cut of 1, 2
+    and 3+ steps: on chip from 3 steps where K <= ON_CHIP_MAX_K; every
+    launch on lane groups where ``segments.lane_group(K, R)`` > 1 (3
+    lanes: 8 threads at K = 9, 32 at 80); plain where no group fits (at
+    70,000 lanes)."""
+    s = 6
     n_steps = 2 * s if fused else s
+    cut = np.array([0, 1, 3], dtype=np.int32)
     monkeypatch.setattr(trisolve_mod, "runs_plain", lambda t: False)
+    monkeypatch.setattr(trisolve_mod, "_check", lambda *t: None)
     name = "hbmc_trisolve_fused" if fused else "hbmc_trisolve"
-    wide = k > segments.ON_CHIP_MAX_K
+    want_codes = {(6, 3): [0, 0, 1], (8, 3): [0, 0, 1], (9, 3): [8] * 3,
+                  (80, 3): [32] * 3}
     for r in (3, 70_000):
-        # the entry is replaced, so the operands need only their shapes
+        want = want_codes.get((k, r), [0, 0, 1] if k <= 8 else [0, 0, 0])
+        # the checks and the launch are replaced, so the operands need
+        # only their shapes
         cols = torch.zeros((1, 1, 1), dtype=torch.int32).expand(n_steps, r,
                                                                 k)
         vals = torch.zeros((1, 1, 1), dtype=torch.float64).expand(n_steps,
                                                                   r, k)
         dinv = torch.ones((n_steps, r), dtype=torch.float64)
         q = torch.zeros((s, r), dtype=torch.float64)
-        on_chip = 2 if not wide else 0
-        grouped = 5 if segments.lane_group(k, r) > 1 else 0
-        assert grouped == (5 if wide and r == 3 else 0)
+        passed = []
 
-        def entry(name, cols, vals, dinv, q, segs, fused_):
-            return (torch.zeros(s * r, dtype=torch.float64), 5, on_chip,
-                    grouped)
+        def entry(name_, cols, vals, dinv, q, seg, paths):
+            assert name_ == name and seg.tolist() == cut.tolist()
+            passed.append(paths.tolist())
+            return torch.zeros(s * r, dtype=torch.float64), seg.size
 
         monkeypatch.setattr(trisolve_mod, "_run", entry)
         kernels.reset_launch_counts()
         fn = (kernels.hbmc_trisolve_fused if fused
               else kernels.hbmc_trisolve)
-        fn(cols, vals, dinv, q, segments=np.array([0], dtype=np.int32))
+        fn(cols, vals, dinv, q, segments=cut)
+        assert passed == [want] == [
+            segments.single_paths(k, r, s, cut, fused).tolist()], r
+        codes = np.array(want)
         assert kernels.forwarding_counts()[name] == {
-            "on_chip": on_chip, "plain": 0 if wide else 5 - on_chip,
-            "wide": 5 - grouped if wide else 0, "grouped": grouped}, r
+            "on_chip": int((codes == 1).sum()),
+            "plain": int((codes == 0).sum()),
+            "grouped": int((codes > 1).sum())}, r
         assert sum(kernels.forwarding_counts()[name].values()) == \
-            kernels.cuda_launch_counts()[name]
+            kernels.cuda_launch_counts()[name] == 3
     kernels.reset_launch_counts()
 
 

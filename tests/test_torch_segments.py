@@ -596,17 +596,18 @@ def test_forwarded_reads_on_the_thermal2_cell_plan():
 
 
 def test_on_chip_constants_mirror_the_kernel_source():
+    """The kernels' own bounds that ``single_paths`` and
+    ``forwarded_reads`` rely on: rows of at most KP entries on chip, a ring
+    of RING_STEPS outputs, groups of at most GROUP_MAX threads."""
     src = (Path(segments.__file__).resolve().parent / "csrc"
            / "hbmc_trisolve.cu").read_text()
-    for name, there in (("ON_CHIP_MIN_STEPS", "ON_CHIP_MIN_STEPS"),
-                        ("RING_STEPS", "RING_STEPS"), ("ON_CHIP_MAX_K", "KP"),
-                        ("GROUP_MAX", "GROUP_MAX"),
-                        ("GROUP_THREADS", "GROUP_THREADS")):
-        got = re.search(rf"constexpr int {there} = (\d+)(?: \* (\d+))?;",
-                        src)
+    for name, there in (("ON_CHIP_MAX_K", "KP"), ("RING_STEPS", "RING_STEPS"),
+                        ("GROUP_MAX", "GROUP_MAX")):
+        got = re.search(rf"constexpr int {there} = (\d+);", src)
         assert got, name
-        value = int(got.group(1)) * int(got.group(2) or 1)
-        assert value == getattr(segments, name), name
+        assert int(got.group(1)) == getattr(segments, name), name
+    for gone in ("ON_CHIP_MIN_STEPS", "GROUP_THREADS", "lane_group"):
+        assert gone not in src, gone
 
 
 # -- the lane-group rule (segments.lane_group) --------------------------------
@@ -642,3 +643,44 @@ def test_lane_group_edges(k, r, group):
         assert r * g <= segments.GROUP_THREADS
         assert (2 * g > min(segments.GROUP_MAX, k)
                 or r * 2 * g > segments.GROUP_THREADS)
+
+
+# -- the path of each single-RHS launch (segments.single_paths) -------------
+
+@pytest.mark.parametrize("k, r, s, starts, fused, want", [
+    # the audikw_1 cell's fused table (480, 1,580, 80): every launch on
+    # lane groups of 32
+    (80, 1_580, 240, [0, 1, 3, 40, 300], True, [32] * 5),
+    # the thermal2 cell's (K = 6, R 19,424): on chip from 3 steps
+    (6, 19_424, 64, [0, 16, 17, 19, 22, 80], True, [1, 0, 0, 1, 1, 1]),
+    # the g3_circuit cell's (K = 15, R 141,886): no group fits, plain
+    (15, 141_886, 240, [0, 1, 2, 10, 300], True, [0] * 5),
+    # segments of 2 and 3 steps, a sweep and a fused table
+    (4, 100, 5, [0, 2], False, [0, 1]),
+    (4, 100, 5, [0, 3, 5, 8], True, [1, 0, 1, 0]),
+    # K at ON_CHIP_MAX_K and one past it
+    (8, 100, 8, [0, 1, 4], False, [0, 1, 1]),
+    (9, 100, 8, [0, 1, 4], False, [8, 8, 8]),
+    # K = 1, and an empty row: plain
+    (1, 100, 8, [0], False, [1]),
+    (0, 100, 8, [0], False, [0]),
+    # R x G at GROUP_THREADS and one lane past it
+    (80, 4_224, 4, [0, 2], True, [32, 32]),
+    (80, 4_225, 4, [0, 2], True, [16, 16]),
+    # S x R below 2^31 and at it: no group, and K past the on-chip path
+    (80, 1, 2**31 - 1, [0], False, [32]),
+    (80, 2, 2**30, [0], False, [0]),
+    # steps x R x K below 2^31 and at it: no on-chip path
+    (8, 2**20, 127, [0], True, [1]),
+    (8, 2**20, 128, [0], True, [0]),
+    (8, 2**20, 255, [0, 100], False, [1, 1]),
+    (8, 2**20, 256, [0, 100], False, [0, 0]),
+], ids=["audikw_1", "thermal2", "g3_circuit", "lengths-2-3-sweep",
+        "lengths-2-3-fused", "k8", "k9", "k1", "k0", "rg-at-cap",
+        "rg-past-cap", "sr-below-2^31", "sr-at-2^31", "entries-below-2^31",
+        "entries-at-2^31", "sweep-entries-below-2^31",
+        "sweep-entries-at-2^31"])
+def test_single_paths(k, r, s, starts, fused, want):
+    got = segments.single_paths(k, r, s, np.asarray(starts, np.int32), fused)
+    assert got.dtype == np.int32
+    assert got.tolist() == want

@@ -15,6 +15,9 @@
   ``refactor``), and a plan's first solve records its table's segment
   analysis, the next one none.
 * No span reaches ``torch.profiler``.
+* The counters: ``count`` / ``counts`` / ``reset_counts`` by prefix, and
+  ``snapshot`` / ``add`` as a replayed graph uses them; the kernels',
+  mesh's and loops' views read them and reset only their own.
 """
 import numpy as np
 import pytest
@@ -198,3 +201,51 @@ def test_spans_stay_out_of_the_profiler(plan):
     recorded = {r.name for r in spans.recent()}
     assert set(SOLVE) <= recorded
     assert not recorded & {e.name for e in prof.events()}
+
+
+def test_counters_by_prefix_snapshot_and_add():
+    spans.reset_counts("test.")
+    spans.count("test.a.x")
+    spans.count("test.a.y", 5)
+    spans.count("test.b", 2)
+    assert spans.counts("test.a.") == {"x": 1, "y": 5}
+    before = spans.snapshot()
+    spans.count("test.a.x", 3)        # what a capture counted
+    spans.count("test.c", 4)
+    after = spans.snapshot()
+    delta = {k: v - before.get(k, 0) for k, v in after.items()
+             if v != before.get(k, 0)}
+    assert delta == {"test.a.x": 3, "test.c": 4}
+    spans.add(delta, -1)              # taken back out
+    assert spans.counts("test.") == {"a.x": 1, "a.y": 5, "b": 2, "c": 0}
+    spans.add(delta, times=2)         # two replays
+    assert spans.counts("test.") == {"a.x": 7, "a.y": 5, "b": 2, "c": 8}
+    spans.reset_counts("test.a.")
+    assert spans.counts("test.") == {"b": 2, "c": 8}
+    spans.reset_counts("test.")
+    assert spans.counts("test.") == {}
+
+
+def test_each_view_resets_its_own_counters():
+    from repro_torch import kernels
+    from repro_torch.core import device_loop, mesh
+    kernels.reset_launch_counts()
+    mesh.reset_gather_counts()
+    device_loop.reset_loop_counts()
+    spans.count("kernels.calls.sell_spmv", 2)
+    spans.count("kernels.path.hbmc_trisolve.grouped", 3)
+    spans.count("mesh.gathers.spmv")
+    spans.count("loop.replays", 4)
+    assert kernels.launch_counts()["sell_spmv"] == 2
+    assert kernels.forwarding_counts()["hbmc_trisolve"] == {
+        "on_chip": 0, "plain": 0, "grouped": 3}
+    assert mesh.gather_counts() == {"trisolve": 0, "spmv": 1}
+    assert device_loop.loop_counts() == {"reads": 0, "blocks": 0,
+                                         "replays": 4, "captures": 0}
+    kernels.reset_launch_counts()
+    assert set(kernels.launch_counts().values()) == {0}
+    assert mesh.gather_counts()["spmv"] == 1
+    assert device_loop.loop_counts()["replays"] == 4
+    mesh.reset_gather_counts()
+    device_loop.reset_loop_counts()
+    assert spans.counts("mesh.") == spans.counts("loop.") == {}
